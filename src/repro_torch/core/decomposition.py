@@ -1,0 +1,97 @@
+"""The paper's decomposition ``f_hat = u - s * sigma(v)`` at LM scale
+(``core/decomposition.py``): the server backbone with a scalar corrector
+head, and a small edge tower with the truncated-basis monitor head
+(paper Eq. 8)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.nn.module import Linear, normal_, param, resolve_device
+
+
+def sigma(x: torch.Tensor, kind: str = "sigmoid") -> torch.Tensor:
+    """Fixed continuous invertible map into (0, 1)."""
+    if kind == "sigmoid":
+        return torch.sigmoid(x)
+    if kind == "tanh01":
+        return 0.5 * (torch.tanh(x) + 1.0)
+    raise ValueError(kind)
+
+
+def edge_arch(cfg: ArchConfig) -> ArchConfig:
+    """The edge tower's config, derived from ``cfg.monitor``: a small dense
+    decoder with a 1k-token ring cache (the edge memory budget)."""
+    m = cfg.monitor
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"edge tower for family {cfg.family!r} is not ported yet: see "
+            "ROADMAP.md queue 1, item 6 (other families)")
+    return ArchConfig(
+        name=f"{cfg.name}-edge", family="dense", citation="edge tower (paper U)",
+        n_layers=m.n_layers, d_model=m.d_model, n_heads=m.n_heads,
+        n_kv_heads=m.n_heads, d_ff=m.d_ff, vocab_size=cfg.vocab_size,
+        n_codebooks=cfg.n_codebooks, tie_embeddings=True,
+        sliding_window=1024,
+        dtype=cfg.dtype, param_dtype=cfg.param_dtype, monitor=m,
+    )
+
+
+def _inv_softplus(y: float) -> float:
+    return float(np.log(np.expm1(y))) if y < 20 else float(y)
+
+
+class UHead(nn.Module):
+    """Truncated-basis monitor head: u = sum_i a_i tanh(w_feat h)_i + t."""
+
+    def __init__(self, d_model: int, n_features: int, device=None):
+        super().__init__()
+        self.w_feat = Linear(d_model, n_features, device=device)
+        self.a = param((n_features,), torch.float32, device)
+        self.raw_t = param((), torch.float32, device)
+
+    def init_(self, gen: torch.Generator, t_init: float):
+        self.w_feat.init_(gen)
+        normal_(self.a, gen, 0.1)
+        self.raw_t.fill_(_inv_softplus(t_init))
+
+
+class CollabLM(nn.Module):
+    """``{server, v_head, edge, u_head}``: the deployed system
+    (``init_collab_lm``'s layout) on ``device`` (``None``: the card; raises
+    when there is none).  The heads stay f32."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        m = cfg.monitor
+        device = resolve_device(device)
+        self.server = TransformerLM(cfg, device)
+        self.v_head = Linear(cfg.d_model, 1, bias=True, device=device)
+        self.edge = TransformerLM(edge_arch(cfg), device)
+        self.u_head = UHead(m.d_model, m.n_features, device)
+
+    def init_(self, gen: torch.Generator, cfg: ArchConfig):
+        self.server.init_(gen)
+        self.v_head.init_(gen)
+        self.edge.init_(gen)
+        self.u_head.init_(gen, cfg.monitor.t_init)
+
+
+def init_collab_lm(cfg: ArchConfig, gen: torch.Generator,
+                   device=None) -> CollabLM:
+    """Random weights drawn from ``gen`` directly on ``device`` (``None``:
+    the card), with the
+    reference's distributions (the reference's ``jax.random`` draws differ:
+    to compare the two, carry the reference's weights across with
+    ``repro_torch.bridge``)."""
+    model = CollabLM(cfg, device)
+    model.init_(gen, cfg)
+    return model
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log1p(exp(-|x|)) + max(x, 0)."""
+    return torch.log1p(torch.exp(-torch.abs(x))) + torch.clamp(x, min=0.0)

@@ -1,0 +1,126 @@
+"""Trigger-gated correction and communication accounting
+(``core/gating.py``): ``compact_correction`` and the per-stream part of
+``CommsMeter`` that the sync and scan serving paths use."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def compact_correction(u: torch.Tensor, xs: torch.Tensor,
+                       corrector: Callable, threshold, margin: float,
+                       capacity: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Static-capacity gated correction over a flat batch.
+
+    u: (N,) monitor scores; xs: (N, ...) server inputs; ``corrector`` maps
+    a (capacity, ...) buffer to (capacity,) corrections (>= 0).  Returns
+    (fhat, mask, n_triggered).  The reference's contract holds: rows are
+    ranked by urgency ``u - (threshold - margin)`` with a stable sort
+    (untriggered rows at the back, ties by row index), only ``capacity``
+    rows reach the corrector, overflow rows keep plain ``u`` (a dropped
+    correction can only keep a warning raised), and untriggered rows in
+    the buffer get their corrections zeroed, so their fhat is exactly u.
+    ``threshold`` may be a scalar or an (N,) tensor of per-stream points.
+    """
+    n = u.shape[0]
+    urgency = u - (threshold - margin)
+    triggered = urgency > 0
+    key = torch.where(triggered, -urgency, torch.full_like(urgency, float("inf")))
+    order = torch.argsort(key, stable=True)
+    sel = order[:capacity]
+    corr_buf = corrector(xs[sel])
+    valid = triggered[sel]
+    fhat = u.index_add(0, sel, -(corr_buf * valid))
+    mask = torch.zeros(n, dtype=torch.float32, device=u.device)
+    mask = mask.index_copy(0, sel, valid.float())
+    return fhat, mask, triggered.sum()
+
+
+@dataclass
+class CommsMeter:
+    """Device->server traffic per stream (paper Fig 4), token level.
+
+    ``bytes_per_request`` is the payload of one shipped token; the
+    baseline ships every observed token.  Each token ships at most once,
+    so ``bytes_sent <= bytes_baseline``.  This is the reference's meter
+    without its async, wire, shm and failover counters, which belong to
+    paths not ported yet.
+    """
+
+    bytes_per_request: int
+    n_streams: int = 1
+    rate_window: int = 64
+    total_steps: int = 0
+    triggered: int = 0
+    tokens_shipped: int = 0
+    tokens_sent: Optional[np.ndarray] = None
+    tokens_seen: Optional[np.ndarray] = None
+
+    def __post_init__(self) -> None:
+        if self.tokens_sent is None:
+            self.tokens_sent = np.zeros(self.n_streams, np.int64)
+        if self.tokens_seen is None:
+            self.tokens_seen = np.zeros(self.n_streams, np.int64)
+        self._ring_events = np.zeros((self.n_streams, self.rate_window), bool)
+        self._ring_seen = np.zeros((self.n_streams, self.rate_window), bool)
+        self._ring_pos = 0
+        self._per_stream_used = False
+
+    def update_per_stream(self, sent, seen, events=None) -> None:
+        """sent/seen: (n_streams,) tokens shipped/observed by this event;
+        ``events``: trigger events per stream (default ``sent > 0``)."""
+        sent = np.asarray(sent, np.int64)
+        seen = np.asarray(seen, np.int64)
+        if events is None:
+            events = (sent > 0).astype(np.int64)
+        self._per_stream_used = True
+        self.tokens_sent += sent
+        self.tokens_seen += seen
+        self.tokens_shipped += int(sent.sum())
+        self.triggered += int(np.asarray(events).sum())
+        self.total_steps += int(seen.sum())
+        self._ring_events[:, self._ring_pos] = np.asarray(events) > 0
+        self._ring_seen[:, self._ring_pos] = seen > 0
+        self._ring_pos = (self._ring_pos + 1) % self.rate_window
+
+    def recent_trigger_rate(self) -> np.ndarray:
+        ev = self._ring_events.sum(axis=1, dtype=np.int64)
+        seen = self._ring_seen.sum(axis=1, dtype=np.int64)
+        return ev / np.maximum(seen, 1)
+
+    @property
+    def trigger_rate(self) -> float:
+        return self.triggered / max(self.total_steps, 1)
+
+    @property
+    def bytes_sent(self) -> int:
+        return self.tokens_shipped * self.bytes_per_request
+
+    @property
+    def bytes_baseline(self) -> int:
+        return self.total_steps * self.bytes_per_request
+
+    @property
+    def reduction(self) -> float:
+        return self.bytes_baseline / max(self.bytes_sent, 1)
+
+    def per_stream_report(self) -> Dict[str, np.ndarray]:
+        sent_b = self.tokens_sent * self.bytes_per_request
+        base_b = self.tokens_seen * self.bytes_per_request
+        return {"bytes_sent": sent_b,
+                "bytes_baseline": base_b,
+                "reduction_x": base_b / np.maximum(sent_b, 1),
+                "recent_trigger_rate": self.recent_trigger_rate()}
+
+    def report(self) -> Dict[str, object]:
+        rep = {"trigger_rate": self.trigger_rate,
+               "bytes_sent": self.bytes_sent,
+               "bytes_baseline": self.bytes_baseline,
+               "reduction_x": self.reduction}
+        if self._per_stream_used:
+            rep["per_stream"] = self.per_stream_report()
+        return rep

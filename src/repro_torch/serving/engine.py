@@ -1,0 +1,87 @@
+"""Serving engine: batched decode over the uniform backbone API
+(``serving/engine.py``).
+
+Besides the uniform-position ``decode``, the engine exposes a per-element
+decode (``decode_at`` / ``step_at``): every row carries its own cache
+position and an active flag, so independent streams at different depths
+advance in one call, and inactive rows' cache rows are left bit-unchanged.
+The reference gets there with a ``vmap`` over singleton decodes and a
+select; here the (B,) position vector goes straight through the model and
+the decode attention kernel, and the cache write of an inactive row keeps
+the old slot contents.  Every row is decoded; the hidden state of an
+inactive row is garbage and callers gate on ``active``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import api as model_api
+from repro_torch.nn.attention import KVCache
+from repro_torch.nn.module import resolve_device
+
+# batch axis of every cache type, written out where the reference finds
+# it with an eval_shape probe (cache_batch_axes): KVCache leaves are
+# (layers, B, C, Hkv, D)
+CACHE_BATCH_AXIS = {KVCache: 1}
+
+
+def zero_cache_rows(cache, rows: torch.Tensor) -> None:
+    """Zero the selected batch rows (``rows``: (B,) bool) of every cache
+    leaf, in place.  A re-leased slot starts exactly as a fresh cache."""
+    for entry in cache.values():
+        axis = CACHE_BATCH_AXIS[type(entry)]
+        for leaf in entry:
+            shape = [1] * leaf.dim()
+            shape[axis] = rows.shape[0]
+            leaf.masked_fill_(rows.reshape(shape), 0)
+
+
+def step_at(params, cfg: ArchConfig, cache, tokens_t: torch.Tensor,
+            pos: torch.Tensor, active: torch.Tensor, *,
+            with_logits: bool = True):
+    """Per-element decode: row i reads/writes its cache at ``pos[i]``;
+    rows with ``active[i] == False`` keep their cache bit-unchanged.
+    Returns (logits | None, hidden)."""
+    return model_api.decode_step(params, cfg, cache, tokens_t, pos,
+                                 with_logits=with_logits, active=active)
+
+
+class ServeEngine:
+    """Parameters + cache for one batched decode session on ``device``."""
+
+    def __init__(self, params, cfg: ArchConfig, batch: int, max_len: int,
+                 device):
+        self.params, self.cfg = params, cfg
+        self.batch, self.max_len = batch, max_len
+        self.device = resolve_device(device)
+        self.cache = model_api.init_cache(cfg, batch, max_len, self.device)
+        self.pos = 0
+
+    def decode(self, tokens_t: torch.Tensor
+               ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """One step at the engine's scalar position; returns (logits,
+        hidden) and advances it."""
+        out = model_api.decode_step(self.params, self.cfg, self.cache,
+                                    tokens_t, self.pos)
+        self.pos += 1
+        return out
+
+    def decode_masked(self, tokens_t: torch.Tensor, pos: int,
+                      mask: torch.Tensor, *, with_logits: bool = True):
+        """One dense decode at scalar ``pos`` where only ``mask`` rows
+        commit their cache writes.  ``self.pos`` is not advanced."""
+        return self.decode_at(tokens_t, pos, mask, with_logits=with_logits)
+
+    def decode_at(self, tokens_t: torch.Tensor, pos, active: torch.Tensor,
+                  *, with_logits: bool = True):
+        """Per-element decode step on the engine's cache (see ``step_at``).
+        ``pos``: scalar or (B,).  ``self.pos`` is not advanced."""
+        return step_at(self.params, self.cfg, self.cache, tokens_t, pos,
+                       active, with_logits=with_logits)
+
+    def zero_rows(self, rows) -> None:
+        """Reset the selected rows (``rows``: (B,) bool) to bit-cold zeros."""
+        zero_cache_rows(self.cache, torch.as_tensor(rows, device=self.device))

@@ -1,0 +1,73 @@
+"""The port stands alone: importing it pulls in neither JAX nor any module
+of the reference package, and its entry points run on the card unless
+the caller asks for the CPU."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+_CHECK = """
+import sys
+import repro_torch, repro_torch.bridge, repro_torch.serving
+import repro_torch.serving.api, repro_torch.kernels.ops
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
+print("BAD" if bad else "OK", bad)
+"""
+
+
+def test_import_pulls_in_no_jax_and_no_reference():
+    env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC)}
+    out = subprocess.run([sys.executable, "-c", _CHECK], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK"), out.stdout
+
+
+def test_port_sources_name_no_jax_and_no_reference():
+    root = os.path.join(SRC, "repro_torch")
+    chip_smoke = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+             if f.endswith(".py")] + [chip_smoke]
+    for path in paths:
+        for line in open(path):
+            code = line.split("#")[0].strip()
+            assert not code.startswith(("import jax", "from jax",
+                                        "import repro.", "from repro.",
+                                        "from repro import")), (path, line)
+
+
+def test_entry_point_defaults_to_the_card(monkeypatch):
+    """device=None means CUDA; without a card it raises, never slides to
+    the CPU."""
+    from repro_torch.configs.paper_synthetic import SERVING
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.serving import MonitorSession
+    model = init_collab_lm(SERVING, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MonitorSession.open(model, SERVING, batch=2, max_len=8)
+
+
+@pytest.mark.parametrize("entry", ["init_collab_lm", "init_model",
+                                   "init_cache", "collab_from_numpy"])
+def test_model_constructors_default_to_the_card(monkeypatch, entry):
+    """The model and cache constructors read device=None as CUDA too: they
+    raise without a card instead of building on the host."""
+    from repro_torch import bridge
+    from repro_torch.configs.paper_synthetic import SERVING
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.models import api
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    call = {"init_collab_lm": lambda: init_collab_lm(SERVING, gen),
+            "init_model": lambda: api.init_model(SERVING, gen),
+            "init_cache": lambda: api.init_cache(SERVING, 2, 8),
+            "collab_from_numpy": lambda: bridge.collab_from_numpy(
+                {}, SERVING, None)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
