@@ -1,36 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's two paths, serving and training, on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
 Phases, each printing its own lines:
 
-1. build   -- compile every CUDA kernel of the path from src/repro_torch/
-              kernels/csrc (one nvcc per source, all at once).
+1. build   -- compile every CUDA kernel from src/repro_torch/kernels/csrc
+              (one nvcc per source, all at once).
 2. kernels -- each kernel against its plain PyTorch version on the card,
-              at the serving path's shapes (Granite-8B server and edge
-              towers) plus edge cases; then each kernel's time, its plain
+              at its path's shapes (Granite-8B server and edge towers)
+              plus edge cases; then each kernel's time, its plain
               version's, one PyTorch library call's where there is one,
-              and the least time the card could take (its bound).
-3. small   -- a SMOKE-size session on the card against the same session on
-              the CPU through the plain versions.
+              and the least time the card could take (its bound).  The
+              flash kernel's backward (tensor ops) is checked against
+              autograd through the plain version.
+3. small   -- a SMOKE-size session, and one SMOKE train step per config,
+              on the card against the same on the CPU through the plain
+              versions.
 4. serve   -- MonitorSession over a full-width granite-8b collaborative
               model (random weights from --seed) in sync and in scan mode,
               with a threshold calibrated to the paper's trigger rate;
               checks the protocol's invariants, counts each kernel's
               launches in that run, prints tokens/s, ms per step and peak
-              memory.  --profile adds a torch.profiler breakdown of one
-              sync and one scan run.
+              memory.
+5. train   -- train_collab_lm at full granite-8b width (TRAIN_LAYERS of
+              the 36 server layers), B=2 x S=4096, four AdamW steps:
+              tokens/s and ms/step of steps 2-4, every step's loss parts,
+              the flash kernel's launches (18 per step), fhat <= u on the
+              last batch, peak memory; then two witnesses of the
+              full-width gradient: the same four steps at a tenth of the
+              learning rate, and an f32 central-difference check.
 
-Then one JSON line of the kernels, the card's name and power limit, and a
-last line {"ok": true, "device": {...}}.  Any failed check raises, so the
-script exits non-zero and prints no result; it also does so without a GPU
-or outside a checkout of the repository.
+--profile adds torch.profiler breakdowns of one sync and one scan run and
+of one train step.  Then one JSON line of the kernels, the card's name
+and power limit, and a last line {"ok": true, "device": {...}}.  Any
+failed check raises, so the script exits non-zero and prints no result;
+it also does so without a GPU or outside a checkout of the repository.
+f32 comparisons run in full f32: TF32 is switched off for matmuls and
+cuDNN.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import math
 import re
@@ -46,9 +60,29 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+TOL_E2E = {"bfloat16": 2e-2, "float32": 1e-4}  # after a whole tower
 # the serve cell: 8 streams, a 512-token cache, 64 monitored tokens each;
 # the profile covers the first 8 steps (the profiler's per-event cost)
 BATCH, MAX_LEN, STEPS, PROFILE_STEPS = 8, 512, 64, 8
+# the train cell: 2 streams of 4096 tokens (the reference's train_4k
+# sequence length), 4 AdamW steps, steps 2-4 timed.  Depth is cut to 8 of
+# 36 server layers: a trained parameter costs 16 bytes (bf16 weight and
+# gradient, f32 master and two f32 moments), 129 GB at 36 layers (8.05 B
+# parameters), more than the card's 80 GB; 8 layers (1.95 B) take ~31 GB
+# and leave room for activations and the optimizer's temporaries.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LAYERS = 2, 4096, 4, 8
+TRAIN_LR = 3e-4
+# a second run of the train cell at a tenth of the recipe's step size:
+# a witness that the full-width gradient points downhill, whatever the
+# recipe's first steps do from a random init at width 4096
+WITNESS_LR = 3e-5
+# the central-difference check of the full-width gradient: each step moves
+# the f32 loss by about FD_DELTA; relative tolerance on each directional
+# derivative (the train cell reads at most 1.8e-4 on the H100; a dK 10%
+# off reads 9e-2 at a small width on the CPU)
+FD_DELTA, FD_TOL = 1e-2, 2e-3
+SERVE_KERNELS = ("decode_attention", "monitor_combine")
+TRAIN_KERNELS = ("flash_attention",)
 
 
 def has_gqa_sdpa(torch) -> bool:
@@ -101,6 +135,21 @@ def max_err(a, b) -> float:
 def within(a, b, tol: float) -> bool:
     a, b = a.float(), b.float()
     return bool(((a - b).abs() <= tol + tol * b.abs()).all())
+
+
+def bf16_attention_bound(torch, plain, q, k, v, ref, window: int):
+    """Per-entry bound on |kernel - plain| for bf16 attention outputs.
+
+    Both round p to bf16 before the PV product, the kernel relative to its
+    running max and the plain version after normalising, so their f32
+    outputs differ by at most 2 * 2^-9 * (P|V|) for each entry; each then
+    rounds to bf16, within an ulp of |ref| between them.  Bound:
+    1.25 * 2^-8 * (P|V|) + 2 ulp(|ref|), the 1.25 covering f32 summation
+    order.  P|V| is the plain version on f32 q, k and |v|."""
+    pv = plain(q.float(), k.float(), v.float().abs(), window=window)[0]
+    _, e = torch.frexp(ref.float())
+    ulp = torch.ldexp(torch.ones_like(pv), e - 8)
+    return 1.25 * 2.0 ** -8 * pv + 2 * ulp
 
 
 # ---------------------------------------------------------------- phase 1
@@ -243,6 +292,127 @@ def phase_kernels(torch, dev, seed: int, max_len: int, srv, edge):
     return records
 
 
+def attention_pairs(S: int, T: int, window: int) -> int:
+    """(row, col) pairs a causal (sliding-window) attention computes."""
+    return sum(min(r + 1, T) - (max(0, r - window + 1) if window else 0)
+               for r in range(S))
+
+
+def phase_flash(torch, dev, seed: int, shapes):
+    """flash_attention against its plain version at the training path's
+    shapes and edge cases, its backward against autograd through the
+    plain version, then its times.  ``shapes``: {tower: (B, S, Hq, Hkv,
+    D, window)}.  Returns the kernel's JSON record (without launches)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_backward,
+                                                     flash_attention_cuda,
+                                                     flash_attention_plain)
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def qkv(B, S, Hq, Hkv, D, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+
+    cases = [(f"{tower} bf16", shp, torch.bfloat16)
+             for tower, shp in shapes.items()]
+    cases += [("SMOKE f32 ragged S=1000", (2, 1000, 4, 2, 64, 0), torch.float32),
+              ("SMOKE f32 S=1", (2, 1, 4, 2, 64, 0), torch.float32),
+              ("f32 window 100 < S=300, D=32", (2, 300, 4, 2, 32, 100),
+               torch.float32),
+              ("bf16 MQA window 37, D=128", (1, 333, 8, 1, 128, 37),
+               torch.bfloat16)]
+    worst = 0.0
+    for label, (B, S, Hq, Hkv, D, window), dtype in cases:
+        q, k, v = qkv(B, S, Hq, Hkv, D, dtype)
+        o, lse = flash_attention_cuda(q, k, v, window=window)
+        po, plse = flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        tol = TOL["bfloat16" if bf16 else "float32"]
+        err, lerr = max_err(o, po), max_err(lse, plse)
+        worst = max(worst, err)
+        scaled = ""
+        if bf16:  # the flat tolerance is loose where |o| is small
+            bound = bf16_attention_bound(torch, flash_attention_plain, q, k,
+                                         v, po, window)
+            ratio = float(((o.float() - po.float()).abs() / bound).max())
+            scaled = (f", max |err| / rounding bound = {ratio:.3f} (bound "
+                      f"median {float(bound.median()):.2e}, median |o| "
+                      f"{float(po.float().abs().median()):.2e})")
+            check(ratio <= 1.0, f"flash_attention {label} rounding bound")
+        print(f"[kernels] flash_attention {label} B={B} S={S} Hq={Hq} "
+              f"Hkv={Hkv} D={D} window={window}: max_abs_err={err:.3e} (tol "
+              f"{tol}){scaled}, lse max_abs_err={lerr:.3e} (f32 tol "
+              f"{TOL['float32']})")
+        check(within(o, po, tol), f"flash_attention {label}")
+        check(within(lse, plse, TOL["float32"]), f"flash_attention lse {label}")
+
+    # backward: the Function (kernel forward, tensor-op backward) against
+    # autograd through the plain version, f32, rel 1e-4 of the largest
+    # entry, at both path shapes (16 and 2 row blocks) and a small window
+    for B, S, Hq, Hkv, D, window in (*shapes.values(),
+                                     (2, 300, 4, 2, 64, 100)):
+        q, k, v = qkv(B, S, Hq, Hkv, D, torch.float32)
+        do = torch.randn(q.shape, generator=gen, device=dev)
+        grads = []
+        for fn in (lambda a, b, c: ops.flash_attention(a, b, c, window=window),
+                   lambda a, b, c: flash_attention_plain(a, b, c,
+                                                         window=window)[0]):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            (fn(*leaves) * do).sum().backward()
+            grads.append([t.grad for t in leaves])
+            del leaves
+        torch.cuda.synchronize()
+        for name, a, b in zip("qkv", *grads):
+            rel = max_err(a, b) / float(b.abs().max())
+            print(f"[kernels] flash_attention backward d{name} B={B} S={S} "
+                  f"Hq={Hq} Hkv={Hkv} D={D} window={window}: max_abs_err / "
+                  f"max|grad| = {rel:.3e} (tol 1e-4)")
+            check(rel <= 1e-4, f"flash backward d{name} window={window}")
+
+    # times at the path's shapes
+    times = {}
+    for tower, (B, S, Hq, Hkv, D, window) in shapes.items():
+        q, k, v = qkv(B, S, Hq, Hkv, D, torch.bfloat16)
+        ms, host = time_ms(torch, lambda i: flash_attention_cuda(
+            q, k, v, window=window), 10)
+        plain, _ = time_ms(torch, lambda i: flash_attention_plain(
+            q, k, v, window=window), 3)
+        o, lse = flash_attention_cuda(q, k, v, window=window)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        bwd, _ = time_ms(torch, lambda i: flash_attention_backward(
+            q, k, v, o, lse, do, window=window), 3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            row = torch.arange(S, device=dev)[:, None]
+            col = torch.arange(S, device=dev)[None, :]
+            mask = (col <= row) & (col > row - window)
+            lib, _ = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), 10)
+        else:
+            lib, _ = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv), 10)
+        n_ops = 4.0 * B * Hq * D * attention_pairs(S, S, window)
+        n_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
+        bms, by = bound_ms(n_bytes, n_ops, BF16_FLOPS)
+        times[tower] = (ms, plain, lib, bms, by)
+        print(f"[kernels] flash_attention time {tower} B={B} S={S} Hq={Hq} "
+              f"Hkv={Hkv} D={D} window={window}: kernel {ms * 1e3:.1f} us "
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain * 1e3:.1f} "
+              f"us, library {lib * 1e3:.1f} us (SDPA"
+              f"{', boolean window mask' if window else ', is_causal'}), "
+              f"bound {bms * 1e3:.2f} us ({by}: {n_ops:.3e} flop, "
+              f"{n_bytes / 1e6:.2f} MB); backward (tensor ops) "
+              f"{bwd * 1e3:.1f} us")
+    ms, plain, lib, bms, by = times["server"]
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:73",
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
 # ---------------------------------------------------------------- phase 3
 def phase_small(torch, dev, seed: int):
     """A SMOKE-size bf16 session on the card (kernels) against the same
@@ -274,6 +444,65 @@ def phase_small(torch, dev, seed: int):
     check(np.allclose(a["u"], b["u"], atol=tol, rtol=tol), "small u")
     check(np.allclose(a["fhat"], b["fhat"], atol=tol, rtol=tol), "small fhat")
     check((a["triggered"] == b["triggered"])[~ties].all(), "small triggers")
+
+
+def phase_small_train(torch, dev, seed: int):
+    """One train step per SMOKE config on the card (flash kernel) against
+    the same step from the same weights on the CPU (plain version): loss
+    parts and grad norm within the dtype's end-to-end tolerance; f32
+    masters within lr/10; bf16 masters finite and at most 5% of each leaf
+    beyond lr/10.  A first Adam step moves every entry by about lr, so
+    bf16 gradient entries near 0 that take the other sign put the two
+    masters ~2 lr apart: only the share of such entries can tell a fault
+    from rounding."""
+    from repro_torch import bridge
+    from repro_torch.configs import granite_8b, paper_synthetic
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.training.loop import make_train_step, to_device, trainable
+    from repro_torch.training.optimizer import AdamW
+    cpu, lr = torch.device("cpu"), 1e-3
+    for label, cfg in (("granite-8b SMOKE f32", granite_8b.SMOKE),
+                       ("paper SERVING bf16 remat", paper_synthetic.SERVING)):
+        model_cpu = init_collab_lm(cfg, torch.Generator(cpu).manual_seed(seed),
+                                   cpu)
+        runs = {}
+        for where, model, d in (("card", copy.deepcopy(model_cpu).to(dev), dev),
+                                ("cpu", model_cpu, cpu)):
+            opt = AdamW(lr=lr)
+            state = opt.init(trainable(model))
+            batch = to_device(next(lm_batches(seed, cfg, 2, 100)), d)
+            m = make_train_step(cfg, opt)(model, state, batch)
+            runs[where] = ({k: float(v) for k, v in m.items()},
+                           bridge.collab_to_numpy(model, state))
+        (ma, pa), (mb, pb) = runs["card"], runs["cpu"]
+        tol = TOL_E2E[cfg.dtype]
+        for key in ("total", "lm", "monitor", "safety", "grad_norm"):
+            check(abs(ma[key] - mb[key]) <= tol + tol * abs(mb[key]),
+                  f"small train {label} {key}: {ma[key]} vs {mb[key]}")
+        worst, frac = 0.0, 0.0
+        for a, b in zip(_leaves(pa), _leaves(pb)):
+            check(np.isfinite(a).all(), f"{label} card masters finite")
+            d = np.abs(a - b)
+            worst, frac = max(worst, float(d.max())), max(
+                frac, float((d > 0.1 * lr).mean()))
+        bf16 = cfg.dtype == "bfloat16"
+        print(f"[small] train step {label}, card vs CPU: loss "
+              f"{ma['total']:.6f} vs {mb['total']:.6f}, grad norm "
+              f"{ma['grad_norm']:.6f} vs {mb['grad_norm']:.6f} (tol {tol}); "
+              f"masters max |diff| {worst / lr:.3f} lr, largest share of a "
+              f"leaf beyond lr/10 {frac:.4f}")
+        if not bf16:
+            check(worst <= 0.1 * lr, f"{label} masters")
+        check(frac <= 0.05, f"{label} masters beyond lr/10")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------- phase 4
@@ -346,8 +575,8 @@ def phase_serve(torch, dev, args):
           "per-stream bytes_sent sync == scan")
     dfhat = float(np.abs(sync["fhat"] - scan["fhat"]).max())
     check(dfhat <= 1e-6, f"fhat sync vs scan within 1e-6 (got {dfhat})")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} launched in the serve phase")
+    for name in SERVE_KERNELS:
+        check(counts[name] > 0, f"kernel {name} launched in the serve phase")
     print(f"[serve] invariants hold: fhat <= u, u/triggered/bytes sync == "
           f"scan, max |fhat sync - scan| = {dfhat:.3e}, bytes_sent "
           f"{sync['comms']['bytes_sent']} <= baseline "
@@ -355,6 +584,220 @@ def phase_serve(torch, dev, args):
     if args.profile:
         profile(torch, session, conf, toks[:, :PROFILE_STEPS])
     return counts
+
+
+# ---------------------------------------------------------------- phase 5
+def phase_train(torch, dev, args):
+    """train_collab_lm at full granite-8b width, TRAIN_LAYERS deep."""
+    from repro_torch import kernels
+    from repro_torch.configs import granite_8b
+    from repro_torch.core.decomposition import collab_forward, edge_arch
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.training.loop import to_device, train_collab_lm
+    cfg = granite_8b.FULL.replace(n_layers=TRAIN_LAYERS)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    seen = []
+
+    def batches():
+        for b in lm_batches(args.seed, cfg, B, S):
+            seen.append(b)
+            yield b
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()  # count the train path's launches only
+    model, hist = train_collab_lm(
+        torch.Generator(dev).manual_seed(args.seed), cfg, batches(), steps=n,
+        lr=TRAIN_LR, log_every=1, device=dev,
+        log_fn=lambda line: print(f"[train] {line}"))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    dt = hist[-1]["wall_s"] - hist[0]["wall_s"]
+    print(f"[train] granite-8b width, {cfg.n_layers} of 36 server layers, "
+          f"{n_params / 1e9:.3f} B parameters (server, edge, heads), "
+          f"B={B} x S={S}, AdamW lr {TRAIN_LR}: steps 2-{n}: "
+          f"{(n - 1) * B * S / dt:.1f} tokens/s, {dt / (n - 1) * 1e3:.1f} "
+          f"ms/step; step 1 {hist[0]['wall_s'] * 1e3:.1f} ms; launches "
+          f"{counts}; peak device memory {peak / 2**30:.2f} GiB")
+    for h in hist:
+        print(f"[train] step {h['step'] + 1}: total {h['total']:.6f} lm "
+              f"{h['lm']:.6f} monitor {h['monitor']:.6f} safety "
+              f"{h['safety']:.6f} grad_norm {h['grad_norm']:.6f}")
+        for key in ("total", "lm", "monitor", "safety", "grad_norm"):
+            check(math.isfinite(h[key]), f"train step {h['step']} {key}")
+    # one flash launch per layer forward, again in the recompute of each
+    # server layer under remat; the edge tower has no remat: 18 per step
+    per_step = (cfg.n_layers * (2 if cfg.remat else 1)
+                + edge_arch(cfg).n_layers)
+    check(counts["flash_attention"] == per_step * n,
+          f"flash launches {counts['flash_attention']} == {per_step} x {n} "
+          f"steps")
+    with torch.no_grad():
+        out = collab_forward(model, cfg, to_device(seen[-1], dev))
+    u, fhat = out["u"], out["fhat"]
+    check(u.shape == (B, S) and fhat.shape == (B, S), "u/fhat shape")
+    check(bool(torch.isfinite(u).all() and torch.isfinite(fhat).all()),
+          "u/fhat finite")
+    check(bool((fhat <= u).all()), "fhat <= u on the last batch")
+    print(f"[train] last batch: fhat <= u at all {B * S} positions, u in "
+          f"[{float(u.min()):.4f}, {float(u.max()):.4f}]")
+    del model, out
+    torch.cuda.empty_cache()
+    _, whist = train_collab_lm(
+        torch.Generator(dev).manual_seed(args.seed), cfg,
+        lm_batches(args.seed, cfg, B, S), steps=n, lr=WITNESS_LR,
+        log_every=1, device=dev, log_fn=lambda line: None)
+    torch.cuda.empty_cache()
+    for key in ("lm", "total"):
+        print(f"[train] witness, lr {WITNESS_LR}, same init and batches: "
+              f"{key} " + " -> ".join(f"{h[key]:.6f}" for h in whist)
+              + f" (recipe lr {TRAIN_LR}: "
+              + " -> ".join(f"{h[key]:.6f}" for h in hist) + ")")
+    for h in whist:
+        check(all(math.isfinite(h[key]) for key in ("total", "grad_norm")),
+              f"witness step {h['step']} finite")
+    gradient_witness(torch, dev, cfg, to_device(seen[0], dev), args.seed)
+    if args.profile:
+        profile_train(torch, dev, cfg, args.seed)
+    return counts
+
+
+def gradient_witness(torch, dev, cfg, batch, seed: int) -> None:
+    """The port's full-width gradient, without the reference: the train
+    cell's model in f32 (same init), the joint loss's gradient g on the
+    first batch, and for each group of parameters (each attention
+    projection of each tower, across its layers, then all the rest) the
+    central difference of the loss along that group's g / |g|, at a step
+    that moves the loss by about FD_DELTA, which must equal g times the
+    step the f32 weights really took to within FD_TOL (relative).  The
+    wq / wk / wv groups read the flash backward's dQ / dK / dV at the
+    path's shapes; remat, the tied embedding and both towers are in the
+    rest."""
+    from repro_torch.core.decomposition import collab_forward, init_collab_lm
+    from repro_torch.core.losses import collab_lm_loss
+    from repro_torch.training.loop import trainable
+    cfg32 = cfg.replace(dtype="float32")
+    model = init_collab_lm(cfg32, torch.Generator(dev).manual_seed(seed), dev)
+    trainable(model)
+    named = list(model.named_parameters())
+
+    def loss():
+        return collab_lm_loss(collab_forward(model, cfg32, batch), batch)
+
+    parts = loss()
+    parts["total"].backward()
+    groups = {}
+    for name, p in named:
+        proj = name.split(".")[-2]
+        key = (f"{name.split('.')[0]} {proj}"
+               if proj in ("wq", "wk", "wv", "wo") else "the rest")
+        groups.setdefault(key, []).append(p)
+    print(f"[train] gradient witness, f32 at the same width, depth and init:"
+          f" loss {float(parts['total'].detach()):.6f} (lm "
+          f"{float(parts['lm'].detach()):.6f})")
+    worst = 0.0
+    for key, params in groups.items():
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        norm = float(torch.sqrt(sum(g.double().square().sum()
+                                    for g in grads)))
+        step = FD_DELTA / norm
+        side, slope = {}, {}
+        with torch.no_grad():
+            orig = [p.detach().clone() for p in params]
+            for sign in (1.0, -1.0):
+                torch._foreach_add_([p.data for p in params], grads,
+                                    alpha=sign * step / norm)
+                # g . (the step the f32 weights really took): entries
+                # below half an ulp of their weight do not move
+                slope[sign] = float(sum(
+                    ((p.data - o).double() * g.double()).sum()
+                    for p, o, g in zip(params, orig, grads)))
+                side[sign] = float(loss()["total"].double())
+                torch._foreach_copy_([p.data for p in params], orig)
+            del orig
+        want = slope[1.0] - slope[-1.0]
+        rel = abs(side[1.0] - side[-1.0] - want) / abs(want)
+        worst = max(worst, rel)
+        print(f"[train]   {key}: |g| {norm:.6f}; along g/|g|, step "
+              f"{step:.3e}: loss difference {side[1.0] - side[-1.0]:.6e}, "
+              f"g . realised step {want:.6e} ({want / (2 * step):.6f} per "
+              f"unit step), relative difference {rel:.3e}")
+    print(f"[train] gradient witness: worst relative difference {worst:.3e}"
+          f" (tol {FD_TOL})")
+    check(worst <= FD_TOL, "full-width gradient against central differences")
+    del model, named, groups, parts
+    torch.cuda.empty_cache()
+
+
+def profile_train(torch, dev, cfg, seed: int):
+    """Device time of one train step (after one warm step) by kernel kind,
+    with the flash backward and the optimizer as annotated ranges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.training.loop import make_train_step, to_device, trainable
+    from repro_torch.training.optimizer import AdamW
+    model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(trainable(model))
+    step = make_train_step(cfg, opt)
+    batches = lm_batches(seed, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    step(model, state, to_device(next(batches), dev))
+    batch = to_device(next(batches), dev)
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        step(model, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the ranges kernels/ops.py and training/optimizer.py open
+    ranges = ("flash_attention_backward", "adamw_update")
+    events = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    # a range shows on the device as an annotation spanning its kernels:
+    # each kernel belongs to the range whose span holds its start
+    spans = [e for e in events if e.name in ranges]
+    kern = [e for e in events if e.name not in ranges]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    check(busy > 0, "the profiler saw device time")
+    print(f"[profile] train step: {busy:.1f} ms of kernels, {len(kern)} "
+          f"launches, wall {wall * 1e3:.1f} ms under the profiler (device "
+          f"busy {busy / (wall * 1e3):.1%}); by range and kernel kind:")
+    groups, outside = {}, {}
+    for e in kern:
+        start = e.time_range.start
+        where = next((sp.name for sp in spans if sp.time_range.start <= start
+                      < sp.time_range.end), "outside the ranges")
+        key = (where, _train_kind(e.name))
+        groups[key] = groups.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+        if where == "outside the ranges":
+            outside[e.name] = (outside.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    for (where, kind), ms in sorted(groups.items(), key=lambda x: -x[1]):
+        print(f"[profile]   {ms:8.2f} ms {ms / busy:6.1%} {where}: {kind}")
+    for name in ranges:
+        n = sum(sp.name == name for sp in spans)
+        ms = sum(v for (w, _), v in groups.items() if w == name)
+        print(f"[profile]   range {name}: {ms:.2f} ms ({ms / busy:.1%}) "
+              f"over {n} calls")
+    for name, ms in sorted(outside.items(), key=lambda x: -x[1])[:8]:
+        print(f"[profile]     {ms:8.2f} ms outside the ranges: {name[:90]}")
+
+
+def _train_kind(name: str) -> str:
+    """The kind of a train-step kernel, from its name."""
+    if "flash_attention_kernel" in name:
+        return "flash_attention kernel"
+    if "multi_tensor" in name or "foreach" in name:
+        return "optimizer (foreach)"
+    if any(w in name for w in ("gemm", "nvjet", "cutlass", "cublas")):
+        if "sgemm" in name or "f32f32" in name:
+            return "matmul f32 (cuBLAS)"
+        return "matmul bf16 (cuBLAS)"
+    return "other PyTorch kernels"
 
 
 def profile(torch, session, conf, toks):
@@ -427,10 +870,25 @@ def main(argv=None) -> int:
     srv = (BATCH, full.n_heads, full.n_kv_heads, full.resolved_head_dim)
     edge = (BATCH, ecfg.n_heads, ecfg.n_kv_heads, ecfg.resolved_head_dim)
 
+    ecfg_train = edge_arch(full.replace(n_layers=TRAIN_LAYERS))
+    flash_shapes = {
+        "server": (TRAIN_BATCH, TRAIN_SEQ, full.n_heads, full.n_kv_heads,
+                   full.resolved_head_dim, full.sliding_window),
+        "edge": (TRAIN_BATCH, TRAIN_SEQ, ecfg_train.n_heads,
+                 ecfg_train.n_kv_heads, ecfg_train.resolved_head_dim,
+                 ecfg_train.sliding_window)}
+
     phase_build()
     records = phase_kernels(torch, dev, args.seed, MAX_LEN, srv, edge)
+    records["flash_attention"] = phase_flash(torch, dev, args.seed,
+                                             flash_shapes)
     phase_small(torch, dev, args.seed)
+    phase_small_train(torch, dev, args.seed)
     counts = phase_serve(torch, dev, args)
+    gc.collect()  # the serve phase's model and sessions are gone
+    torch.cuda.empty_cache()
+    counts.update({k: v for k, v in phase_train(torch, dev, args).items()
+                   if k in TRAIN_KERNELS})
     for name, rec in records.items():
         rec["launches"] = counts[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

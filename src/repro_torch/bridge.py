@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights into the port.
+"""Carry weights between the JAX package's trees and the port's modules.
 
 The reference keeps parameters as nested dicts with layers stacked on a
 leading axis (``blocks/attn/wq/w`` of shape (n_layers, d, Hq*D)).  The
@@ -6,11 +6,14 @@ bridge takes such a tree with numpy leaves (``jax.tree.map(np.asarray,
 params)`` on the reference side; its paths are those of
 ``training/checkpoint.py::_flatten``) and copies every leaf into the
 port's modules on a given device, layer by layer, in each parameter's
-storage dtype.  It imports no JAX: the caller does the ``np.asarray``.
+storage dtype.  ``collab_to_numpy`` goes the other way: the port's
+parameters (or their f32 optimizer masters, or their gradients) as a tree
+of the reference's layout, for leaf-by-leaf comparison.  It imports no
+JAX: the caller does the ``np.asarray``.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -27,7 +30,14 @@ def _as_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C"))  # a writable copy
 
 
-def _load(module: nn.Module, tree: Mapping[str, Any], path: str) -> None:
+def _copy(p: torch.Tensor, src: torch.Tensor) -> None:
+    p.copy_(src.to(p.device).to(p.dtype))
+
+
+def _load(module: nn.Module, tree: Mapping[str, Any], path: str,
+          put=_copy) -> None:
+    """Walk ``tree`` against ``module``; ``put(param, src)`` takes each
+    leaf (default: copy it into the parameter in its storage dtype)."""
     names = {n for n, _ in module.named_children()} | \
             {n for n, _ in module.named_parameters(recurse=False)}
     extra = set(tree) - names
@@ -40,16 +50,17 @@ def _load(module: nn.Module, tree: Mapping[str, Any], path: str) -> None:
         where = f"{path}/{key}" if path else key
         if isinstance(child, nn.ModuleList):  # layers stacked on axis 0
             for li, layer in enumerate(child):
-                _load(layer, _index(sub, li, len(child), where), f"{where}/{li}")
+                _load(layer, _index(sub, li, len(child), where),
+                      f"{where}/{li}", put)
         elif isinstance(child, nn.Module):
-            _load(child, sub, where)
+            _load(child, sub, where, put)
         else:
             src = _as_tensor(sub)
             if tuple(src.shape) != tuple(child.shape):
                 raise ValueError(f"{where}: shape {tuple(src.shape)} != "
                                  f"port {tuple(child.shape)}")
             with torch.no_grad():
-                child.copy_(src.to(child.device).to(child.dtype))
+                put(child, src)
 
 
 def _index(tree, li: int, n: int, where: str):
@@ -68,3 +79,61 @@ def collab_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
     model = CollabLM(cfg, device=device)
     _load(model, tree, "")
     return model
+
+
+def _masters(model: CollabLM, state) -> Dict[int, torch.Tensor]:
+    """id(parameter) -> its f32 master in an optimizer ``state`` made by
+    ``opt.init(list(model.parameters()))``."""
+    return {id(p): mw for p, mw in zip(model.parameters(), state.master)
+            if mw is not None}
+
+
+def load_masters(tree: Mapping[str, Any], model: CollabLM, state) -> None:
+    """Copy the reference tree's f32 leaves into the f32 masters of an
+    optimizer ``state``, so that a model loaded by ``collab_from_numpy``
+    trains from the reference's exact f32 parameters (its stored weights
+    are already their casts)."""
+    masters = _masters(model, state)
+
+    def put(p, src):
+        if id(p) in masters:
+            masters[id(p)].copy_(src.float())
+
+    _load(model, tree, "", put)
+
+
+def _dump(module: nn.Module, leaf) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, p in module.named_parameters(recurse=False):
+        tree[key] = leaf(p)
+    for key, child in module.named_children():
+        if isinstance(child, nn.ModuleList):  # stack layers on axis 0
+            layers = [_dump(layer, leaf) for layer in child]
+            tree[key] = _stack(layers)
+        else:
+            tree[key] = _dump(child, leaf)
+    return tree
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([lay[k] for lay in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
+def collab_to_numpy(model: CollabLM, state=None, *,
+                    grads: bool = False) -> Dict[str, Any]:
+    """``CollabLM`` -> the reference's ``init_collab_lm`` tree of f32 numpy
+    leaves (layers stacked on axis 0).  With an optimizer ``state`` a
+    parameter stored narrower than f32 is read from its f32 master; with
+    ``grads=True`` the leaves are the parameters' gradients instead."""
+    masters = {} if state is None else _masters(model, state)
+
+    def leaf(p: torch.Tensor) -> np.ndarray:
+        t: Optional[torch.Tensor] = p.grad if grads else masters.get(id(p), p)
+        if t is None:
+            raise ValueError("collab_to_numpy(grads=True) needs every "
+                             "parameter's gradient")
+        return t.detach().float().cpu().numpy()
+
+    return _dump(model, leaf)

@@ -36,12 +36,13 @@ class MonitorConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """One backbone.  The port serves the ``dense`` family; the other
+    """One backbone.  The port runs the ``dense`` family; the other
     families' fields are kept so configs stay copies of the reference's.
     Left out are the reference's XLA partitioner and scan knobs
     (``decode_cache_shard``, ``moe_impl``, ``zero1``, ``seq_parallel``,
-    ``prefill_kv_shard``, ``remat``, ``scan_unroll``): they have no
-    meaning in an eager PyTorch program."""
+    ``prefill_kv_shard``, ``scan_unroll``): they have no meaning in an
+    eager PyTorch program.  ``remat`` keeps its meaning: activation
+    checkpointing of each layer in the training forward."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -84,6 +85,7 @@ class ArchConfig:
     n_codebooks: int = 0
     dtype: str = "bfloat16"          # activation/compute dtype
     param_dtype: str = "float32"     # parameter storage dtype
+    remat: bool = True               # activation checkpointing per layer
     monitor: MonitorConfig = field(default_factory=MonitorConfig)
 
     @property

@@ -16,7 +16,7 @@ FULL = ArchConfig(
 
 SMOKE = FULL.replace(
     n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
-    vocab_size=512, dtype="float32",
+    vocab_size=512, remat=False, dtype="float32",
     monitor=MonitorConfig(n_layers=1, d_model=64, n_heads=2, d_ff=128,
                           n_features=16),
 )

@@ -14,7 +14,7 @@ _ARCHS = {
     "paper-synthetic": "repro_torch.configs.paper_synthetic",
 }
 
-# archs of the JAX registry that later slices port (ROADMAP queue 1, item 6)
+# archs of the JAX registry that later slices port (ROADMAP queue 1, item 7)
 _LATER = ("zamba2-7b", "qwen1.5-110b", "deepseek-v3-671b", "qwen2.5-32b",
           "musicgen-large", "qwen1.5-32b", "mixtral-8x22b",
           "llama-3.2-vision-11b", "xlstm-350m", "paper-financial")
@@ -24,7 +24,7 @@ def _module(name: str):
     if name in _LATER:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet: see ROADMAP.md queue 1, "
-            "item 6 (other families)")
+            "item 7 (other families)")
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}")
     return importlib.import_module(_ARCHS[name])

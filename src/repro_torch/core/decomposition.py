@@ -4,13 +4,17 @@ head, and a small edge tower with the truncated-basis monitor head
 (paper Eq. 8)."""
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import api as model_api
 from repro_torch.models.transformer import TransformerLM
-from repro_torch.nn.module import Linear, normal_, param, resolve_device
+from repro_torch.nn.module import (Linear, linear, normal_, param,
+                                   resolve_device)
 
 
 def sigma(x: torch.Tensor, kind: str = "sigmoid") -> torch.Tensor:
@@ -29,14 +33,15 @@ def edge_arch(cfg: ArchConfig) -> ArchConfig:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"edge tower for family {cfg.family!r} is not ported yet: see "
-            "ROADMAP.md queue 1, item 6 (other families)")
+            "ROADMAP.md queue 1, item 7 (other families)")
     return ArchConfig(
         name=f"{cfg.name}-edge", family="dense", citation="edge tower (paper U)",
         n_layers=m.n_layers, d_model=m.d_model, n_heads=m.n_heads,
         n_kv_heads=m.n_heads, d_ff=m.d_ff, vocab_size=cfg.vocab_size,
         n_codebooks=cfg.n_codebooks, tie_embeddings=True,
         sliding_window=1024,
-        dtype=cfg.dtype, param_dtype=cfg.param_dtype, monitor=m,
+        dtype=cfg.dtype, param_dtype=cfg.param_dtype, remat=False,
+        monitor=m,
     )
 
 
@@ -95,3 +100,39 @@ def init_collab_lm(cfg: ArchConfig, gen: torch.Generator,
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log1p(exp(-|x|)) + max(x, 0)."""
     return torch.log1p(torch.exp(-torch.abs(x))) + torch.clamp(x, min=0.0)
+
+
+def monitor_score(model: CollabLM, cfg: ArchConfig, batch) -> torch.Tensor:
+    """Edge-only path (ref :174): u(x) per position, (B, S) f32, from the
+    edge tower's hidden states and the Eq.-8 truncated-basis head."""
+    m = cfg.monitor
+    eout = model_api.forward(model.edge, edge_arch(cfg), batch,
+                             with_logits=False)
+    hd = model.u_head
+    feats = torch.tanh(linear(hd.w_feat, eout["hidden"].float()))
+    mask = (torch.arange(feats.shape[-1], device=feats.device)
+            < m.n_features).float()
+    return feats @ (hd.a * mask) + softplus(hd.raw_t)
+
+
+def corrector_score(model: CollabLM, cfg: ArchConfig,
+                    server_out: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """v(x) per position from the server's hidden states (ref :189)."""
+    return linear(model.v_head, server_out["hidden"].float())[..., 0]
+
+
+def collab_forward(model: CollabLM, cfg: ArchConfig,
+                   batch) -> Dict[str, torch.Tensor]:
+    """Training-time forward of the whole collaborative system (ref :196):
+    the server's logits and corrector v, the edge's monitor u, and
+    ``fhat = u - s * sigma(v)`` with the monitor config's ``s``."""
+    m = cfg.monitor
+    s = m.s
+    server_out = model_api.forward(model.server, cfg, batch)
+    u = monitor_score(model, cfg, batch)
+    v = corrector_score(model, cfg, server_out)
+    corr = s * sigma(v, m.sigma)
+    return {"u": u, "v": v, "fhat": u - corr, "corr": corr,
+            "logits": server_out["logits"],
+            "aux_loss": server_out["aux_loss"],
+            "t": softplus(model.u_head.raw_t)}

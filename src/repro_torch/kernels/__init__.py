@@ -2,10 +2,12 @@
 hand-written Hopper kernel (CUDA tensors); ``ops`` picks by device."""
 from repro_torch.kernels import ops  # noqa: F401
 from repro_torch.kernels.decode_attention import KERNEL as DECODE_ATTENTION
+from repro_torch.kernels.flash_attention import KERNEL as FLASH_ATTENTION
 from repro_torch.kernels.monitor_combine import KERNEL as MONITOR_COMBINE
 
 KERNELS = {"decode_attention": DECODE_ATTENTION,
-           "monitor_combine": MONITOR_COMBINE}
+           "monitor_combine": MONITOR_COMBINE,
+           "flash_attention": FLASH_ATTENTION}
 
 
 def reset_launch_counts() -> None:

@@ -12,7 +12,7 @@ def _impl(cfg: ArchConfig):
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: see ROADMAP.md "
-            "queue 1, item 6 (other families)")
+            "queue 1, item 7 (other families)")
     return transformer
 
 
@@ -30,7 +30,5 @@ def decode_step(params, cfg: ArchConfig, cache, tokens_t, pos, *,
                                   with_logits=with_logits, active=active)
 
 
-def forward(params, cfg: ArchConfig, batch):
-    raise NotImplementedError(
-        "prefill/training forward is not ported yet: see ROADMAP.md queue "
-        "1, item 1 (training) and queue 2, item 3 (flash_attention)")
+def forward(params, cfg: ArchConfig, batch, *, with_logits: bool = True):
+    return _impl(cfg).forward(params, cfg, batch, with_logits=with_logits)

@@ -1,11 +1,15 @@
-"""Dense transformer block and decode-cache sizing (``models/base.py``)."""
+"""Dense transformer block, the layer loop, and decode-cache sizing
+(``models/base.py``)."""
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.nn.attention import GQA, KVCache, gqa_decode
+from repro_torch.nn.attention import GQA, KVCache, gqa_decode, gqa_prefill
 from repro_torch.nn.mlp import SwiGLU, swiglu
 from repro_torch.nn.module import resolve_device
 from repro_torch.nn.norms import RMSNorm, rmsnorm
@@ -28,16 +32,18 @@ class Block(nn.Module):
     """Attention + SwiGLU block.  The projection weights are stored in the
     compute dtype: the reference keeps them in ``param_dtype`` but casts
     them to the compute dtype on every use (``nn/module.py:59``), so the
-    numbers are the same, and a bf16 server takes half the memory (16 GB
-    instead of 32 GB at Granite-8B width).  Norm scales are read in f32 and
-    stay in ``param_dtype``."""
+    forward reads the same numbers, and a bf16 server takes half the
+    memory (16 GB instead of 32 GB at Granite-8B width).  Training keeps
+    an f32 master of each such weight in the optimizer
+    (``training/optimizer.py``).  Norm scales are read in f32 and stay in
+    ``param_dtype``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         if cfg.use_mla or cfg.is_moe:
             raise NotImplementedError(
                 "MLA and MoE blocks are not ported yet: see ROADMAP.md "
-                "queue 1, item 6 (other families)")
+                "queue 1, item 7 (other families)")
         w = dict(dtype=cdt(cfg), device=device)
         self.ln_attn = RMSNorm(cfg.d_model, dtype=pdt(cfg), device=device)
         self.attn = GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -50,6 +56,31 @@ class Block(nn.Module):
         self.attn.init_(gen)
         self.ln_mlp.init_()
         self.mlp.init_(gen)
+
+
+def block_prefill(p: Block, h: torch.Tensor, rope, cfg: ArchConfig, *,
+                  window: int = 0) -> torch.Tensor:
+    """One block over a whole sequence (ref ``block_prefill`` :180 and
+    ``_attn_prefill`` :155, dense branch).  h: (B, S, d_model)."""
+    hn = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    h = h + gqa_prefill(p.attn, hn, rope, n_heads=cfg.n_heads,
+                        n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                        window=window, compute_dtype=cdt(cfg))
+    hn = rmsnorm(p.ln_mlp, h, cfg.norm_eps)
+    return h + swiglu(p.mlp, hn, compute_dtype=cdt(cfg))
+
+
+def scan_layers(body: Callable, h: torch.Tensor, blocks: nn.ModuleList, *,
+                remat: bool) -> torch.Tensor:
+    """``h = body(block, h)`` for each block in order (ref ``scan_layers``
+    :37).  With ``remat`` and autograd on, each layer runs under
+    ``torch.utils.checkpoint``: its activations are dropped after the
+    forward and recomputed in the backward, as ``jax.checkpoint`` does."""
+    remat = remat and torch.is_grad_enabled()
+    for blk in blocks:
+        h = (checkpoint(body, blk, h, use_reentrant=False) if remat
+             else body(blk, h))
+    return h
 
 
 def block_decode(p: Block, h: torch.Tensor, cache_k: torch.Tensor,

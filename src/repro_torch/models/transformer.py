@@ -1,5 +1,6 @@
 """Dense decoder-only backbone (``models/transformer.py``, ``family ==
-"dense"``): embed -> L blocks -> norm -> tied or separate unembed.
+"dense"``): embed -> L blocks -> norm -> tied or separate unembed, as a
+training/prefill ``forward`` over whole sequences and a ``decode_step``.
 
 The reference scans stacked layer parameters with ``lax.scan``; here a
 Python loop walks an ``nn.ModuleList`` and indexes the layer axis of the
@@ -14,8 +15,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import pos_vector
-from repro_torch.models.base import (Block, block_decode, cdt, decode_capacity,
-                                     init_kv_cache, pdt)
+from repro_torch.models.base import (Block, block_decode, block_prefill, cdt,
+                                     decode_capacity, init_kv_cache, pdt,
+                                     scan_layers)
 from repro_torch.nn.embedding import Embedding, embed, unembed
 from repro_torch.nn.module import resolve_device
 from repro_torch.nn.norms import RMSNorm, rmsnorm
@@ -25,8 +27,8 @@ from repro_torch.nn.rotary import rope_angles
 def _layer_layout(cfg: ArchConfig) -> Dict[str, int]:
     if cfg.family != "dense" or cfg.is_moe or cfg.use_mla:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port serves "
-            "dense backbones; see ROADMAP.md queue 1, item 6 (other "
+            f"family {cfg.family!r} is not ported yet: the port runs "
+            "dense backbones; see ROADMAP.md queue 1, item 7 (other "
             "families)")
     return {"kind": "dense", "dense": cfg.n_layers}
 
@@ -61,6 +63,31 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator, device=None) -> TransformerLM
     lm = TransformerLM(cfg, device)
     lm.init_(gen)
     return lm
+
+
+def forward(params: TransformerLM, cfg: ArchConfig, batch, *,
+            with_logits: bool = True) -> Dict[str, torch.Tensor]:
+    """Training/prefill forward (ref :101, dense branch :150-158).
+    batch["tokens"]: (B, S) on the model's device.  Returns ``hidden``
+    (B, S, d) in the compute dtype, ``logits`` (B, S, V) f32 (None with
+    ``with_logits=False``: the edge tower's monitor path reads only the
+    hidden states) and ``aux_loss`` 0 (no MoE)."""
+    _layer_layout(cfg)
+    tokens = batch["tokens"]
+    h = embed(params.embed, tokens, cdt(cfg))
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    rope = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    window = cfg.sliding_window
+    h = scan_layers(lambda blk, x: block_prefill(blk, x, rope, cfg,
+                                                 window=window),
+                    h, params.blocks, remat=cfg.remat)
+    h = rmsnorm(params.ln_f, h, cfg.norm_eps)
+    logits = None
+    if with_logits:
+        tab = params.embed if params.unembed is None else params.unembed
+        logits = unembed(tab, h, cdt(cfg))
+    return {"hidden": h, "logits": logits,
+            "aux_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):

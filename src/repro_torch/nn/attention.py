@@ -1,4 +1,9 @@
-"""GQA attention for single-token decode (``nn/attention.py:136-226``).
+"""GQA attention: prefill over a whole sequence (``nn/attention.py:184``)
+and single-token decode (``nn/attention.py:136-226``).
+
+Prefill is ``kernels.ops.flash_attention``: the plain version of the
+reference's ``chunked_attention`` for CPU tensors, the Hopper flash kernel
+for CUDA ones, with the gradient of ``kernels/flash_attention.py``.
 
 KV caches are fixed-capacity buffers (B, C, Hkv, D).  Decode writes the
 new key/value of row b at slot ``pos[b]`` (``pos[b] % C`` for a ring
@@ -45,6 +50,26 @@ class GQA(nn.Module):
     def init_(self, gen: torch.Generator):
         for lin in (self.wq, self.wk, self.wv, self.wo):
             lin.init_(gen)
+
+
+def gqa_prefill(p: GQA, x: torch.Tensor, rope, *, n_heads: int, n_kv: int,
+                head_dim: int, window: int = 0,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x: (B, S, d_model); ``rope``: (cos, sin) of positions 0..S-1 from
+    ``nn.rotary.rope_angles``.  Causal attention (sliding when
+    ``window > 0``); returns y (B, S, d_model)."""
+    B, S, _ = x.shape
+    q = linear(p.wq, x, compute_dtype=compute_dtype).reshape(B, S, n_heads,
+                                                              head_dim)
+    k = linear(p.wk, x, compute_dtype=compute_dtype).reshape(B, S, n_kv,
+                                                              head_dim)
+    v = linear(p.wv, x, compute_dtype=compute_dtype).reshape(B, S, n_kv,
+                                                              head_dim)
+    q = rotate(q, *rope)
+    k = rotate(k, *rope)
+    o = ops.flash_attention(q, k, v, window=window)
+    return linear(p.wo, o.reshape(B, S, n_heads * head_dim),
+                  compute_dtype=compute_dtype)
 
 
 def write_rows(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor,

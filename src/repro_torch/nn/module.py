@@ -5,8 +5,9 @@ them in ``nn.Module``s whose attribute paths mirror those dicts
 (``blocks.3.attn.wq.w`` for the reference's stacked
 ``blocks/attn/wq/w[3]``), so ``repro_torch.bridge`` can carry a reference
 tree across leaf by leaf.  The modules hold parameters only; the
-computation is plain functions on tensors.  Parameters never require
-gradients: this slice serves, it does not train.
+computation is plain functions on tensors.  Parameters are made without
+gradients, so serving builds no autograd graph; the trainer calls
+``requires_grad_`` on the model it trains (``training/loop.py``).
 """
 from __future__ import annotations
 

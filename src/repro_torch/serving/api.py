@@ -59,19 +59,19 @@ class SessionConfig:
 
     def __post_init__(self):
         if self.mode == "async":
-            raise _later("async mode", "3 (policy + async + tracing)")
+            raise _later("async mode", "4 (policy + async + tracing)")
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}: valid modes are "
                              + ", ".join(repr(m) for m in MODES))
         if self.transport not in (None, "inproc"):
             raise _later(f"transport {self.transport!r}",
-                         "3-5 (async workers, wire, shm and fleet)")
+                         "4-6 (async workers, wire, shm and fleet)")
         if self.mesh is not None:
-            raise _later("mesh-sharded serving", "7 (mesh + analysis)")
+            raise _later("mesh-sharded serving", "8 (mesh + analysis)")
         if self.policy is not None:
-            raise _later("threshold policies", "3 (policy + async + tracing)")
+            raise _later("threshold policies", "4 (policy + async + tracing)")
         if self.trace:
-            raise _later("span tracing", "3 (policy + async + tracing)")
+            raise _later("span tracing", "4 (policy + async + tracing)")
 
 
 class MonitorSession:

@@ -2,12 +2,17 @@
 tolerance table, weights carried across with the bridge, token streams
 made with numpy, and the tie band of a trigger comparison."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from repro.configs import registry as jreg
 from repro.core import decomposition as jdeco
+from repro.training import optimizer as jopt
+from repro.training.loop import make_train_step as j_make_train_step
 from repro_torch import bridge
 from repro_torch.configs import registry as treg
+from repro_torch.training import optimizer as topt
+from repro_torch.training.loop import make_train_step, to_device, trainable
 
 # tests/test_kernels.py:23 -- f32 2e-5, bf16 2e-2
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -40,6 +45,34 @@ def collab_pair(arch, seed=0):
     model = bridge.collab_from_numpy(jax.tree.map(np.asarray, params), tcfg,
                                      "cpu")
     return jcfg, tcfg, params, model
+
+
+def ref_train_steps(jcfg, params, batches, lr):
+    """The reference's AdamW steps (jit) over ``batches``: (final params as
+    numpy, per-step metrics as floats)."""
+    opt = jopt.AdamW(lr=lr)
+    step = jax.jit(j_make_train_step(jcfg, opt))
+    state, hist = opt.init(params), []
+    for b in batches:
+        params, state, m = step(params, state,
+                                {k: jnp.asarray(v) for k, v in b.items()})
+        hist.append({k: float(v) for k, v in m.items()})
+    return jax.tree.map(np.asarray, params), hist
+
+
+def port_train_steps(tcfg, model, tree, batches, lr):
+    """The port's AdamW steps on the CPU from the reference's tree
+    ``tree`` (masters loaded from it): (optimizer state, per-step
+    metrics as floats)."""
+    params = trainable(model)
+    opt = topt.AdamW(lr=lr)
+    state = opt.init(params)
+    bridge.load_masters(tree, model, state)
+    step = make_train_step(tcfg, opt)
+    hist = [{k: float(v) for k, v in step(model, state,
+                                          to_device(b, "cpu")).items()}
+            for b in batches]
+    return state, hist
 
 
 def token_stream(cfg, batch, length, seed=0):

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain versions, and a
-small session through them, on the card.  A CUDA kernel has no CPU mode:
-every test here is marked ``cuda`` and skips without a GPU.  The module
-imports no JAX, so it also runs where only PyTorch is installed:
+small session and train step through them, on the card.  A CUDA kernel
+has no CPU mode: every test here is marked ``cuda`` and skips without a
+GPU.  The module imports no JAX, so it also runs where only PyTorch is
+installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -9,14 +10,22 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import kernels
+import copy
+
+from repro_torch import bridge, kernels
 from repro_torch.configs import registry
 from repro_torch.core.decomposition import init_collab_lm
+from repro_torch.data.tokens import lm_batches
+from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.monitor_combine import (monitor_combine_cuda,
                                                  monitor_combine_plain)
 from repro_torch.serving import MonitorSession, SessionConfig
+from repro_torch.training.loop import make_train_step, to_device, trainable
+from repro_torch.training.optimizer import AdamW
 
 
 @pytest.fixture
@@ -98,3 +107,99 @@ def test_session_on_card_goes_through_kernels(cuda, arch):
     np.testing.assert_allclose(sync["fhat"], scan["fhat"], atol=1e-6, rtol=0)
     assert (sync["fhat"] <= sync["u"]).all()
     assert counts["decode_attention"] > 0 and counts["monitor_combine"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", [
+    (2, 512, 32, 8, 128, 0),    # granite-8b server heads, GQA
+    (2, 512, 4, 4, 64, 100),    # granite-8b edge heads, window < S
+    (2, 256, 4, 2, 64, 0),      # granite-8b SMOKE
+    (3, 1000, 4, 2, 32, 0),     # ragged S
+    (2, 1, 4, 2, 64, 0),        # S = 1
+    (1, 333, 8, 1, 128, 37),    # MQA, ragged, window
+])
+def test_flash_attention_kernel_vs_plain(cuda, dtype, B, S, Hq, Hkv, D,
+                                         window):
+    gen = torch.Generator(cuda).manual_seed(S)
+    q = _rand((B, S, Hq, D), dtype, gen, cuda)
+    k = _rand((B, S, Hkv, D), dtype, gen, cuda)
+    v = _rand((B, S, Hkv, D), dtype, gen, cuda)
+    o, lse = flash_attention_cuda(q, k, v, window=window)
+    po, plse = flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, plse, atol=2e-5, rtol=2e-5)
+    if dtype == torch.bfloat16:
+        # both round p to bf16 (at different scales) and then o: per entry
+        # within 2^-8 (P|V|) (+25% for f32 summation order) + 2 ulp(|o|)
+        pv = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                   window=window)[0]
+        _, e = torch.frexp(po.float())
+        bound = 1.25 * 2.0 ** -8 * pv + 2 * torch.ldexp(torch.ones_like(pv),
+                                                         e - 8)
+        assert ((o.float() - po.float()).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 50])
+def test_flash_attention_gradient_on_card(cuda, window):
+    """The Function (kernel forward, tensor-op backward) against autograd
+    through the plain version, f32, rel 1e-4 of the largest entry."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    q, k, v = (_rand(s, torch.float32, gen, cuda)
+               for s in ((2, 200, 8, 64), (2, 200, 2, 64), (2, 200, 2, 64)))
+    do = _rand(q.shape, torch.float32, gen, cuda)
+    grads = []
+    for fn in (lambda a, b, c: ops.flash_attention(a, b, c, window=window),
+               lambda a, b, c: flash_attention_plain(a, b, c,
+                                                     window=window)[0]):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves) * do).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_unsupported_head_dim(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(q, q, q)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key])
+    else:
+        yield tree
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_card_matches_cpu(cuda):
+    """One granite-8b SMOKE (f32) train step on the card, through the
+    flash kernel, against the same step on the CPU: loss parts and grad
+    norm within 1e-4, every updated master within lr/10."""
+    cfg, lr = registry.get_smoke("granite-8b"), 1e-3
+    cpu = torch.device("cpu")
+    model_cpu = init_collab_lm(cfg, torch.Generator().manual_seed(0), cpu)
+    runs = []
+    kernels.reset_launch_counts()
+    for model, dev in ((copy.deepcopy(model_cpu).to(cuda), cuda),
+                       (model_cpu, cpu)):
+        opt = AdamW(lr=lr)
+        state = opt.init(trainable(model))
+        batch = to_device(next(lm_batches(0, cfg, 2, 100)), dev)
+        m = make_train_step(cfg, opt)(model, state, batch)
+        runs.append(({k: float(x) for k, x in m.items()},
+                     list(_leaves(bridge.collab_to_numpy(model, state)))))
+    assert kernels.launch_counts()["flash_attention"] == (
+        cfg.n_layers + cfg.monitor.n_layers)
+    (ma, pa), (mb, pb) = runs
+    for key in ("total", "lm", "monitor", "safety", "grad_norm"):
+        assert ma[key] == pytest.approx(mb[key], rel=1e-4, abs=1e-4), key
+    for a, b in zip(pa, pb):
+        np.testing.assert_allclose(a, b, atol=0.1 * lr, rtol=0)

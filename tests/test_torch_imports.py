@@ -14,6 +14,8 @@ _CHECK = """
 import sys
 import repro_torch, repro_torch.bridge, repro_torch.serving
 import repro_torch.serving.api, repro_torch.kernels.ops
+import repro_torch.training.loop, repro_torch.training.schedule
+import repro_torch.core.losses, repro_torch.data.tokens
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)
