@@ -1,7 +1,9 @@
 """Carry weights between the JAX package's trees and the port's modules.
 
 The reference keeps parameters as nested dicts with layers stacked on a
-leading axis (``blocks/attn/wq/w`` of shape (n_layers, d, Hq*D)).  The
+leading axis (``blocks/attn/wq/w`` of shape (n_layers, d, Hq*D)), or on
+two (the hybrid's ``mamba_blocks``, (n_super, k, ...)), where the port
+has a ``ModuleList`` of layers (of ``ModuleList``s).  The
 bridge takes such a tree with numpy leaves (``jax.tree.map(np.asarray,
 params)`` on the reference side; its paths are those of
 ``training/checkpoint.py::_flatten``) and copies every leaf into the
@@ -49,9 +51,7 @@ def _load(module: nn.Module, tree: Mapping[str, Any], path: str,
         child = getattr(module, key)
         where = f"{path}/{key}" if path else key
         if isinstance(child, nn.ModuleList):  # layers stacked on axis 0
-            for li, layer in enumerate(child):
-                _load(layer, _index(sub, li, len(child), where),
-                      f"{where}/{li}", put)
+            _load_stacked(child, sub, where, put)
         elif isinstance(child, nn.Module):
             _load(child, sub, where, put)
         else:
@@ -61,6 +61,15 @@ def _load(module: nn.Module, tree: Mapping[str, Any], path: str,
                                  f"port {tuple(child.shape)}")
             with torch.no_grad():
                 put(child, src)
+
+
+def _load_stacked(layers: nn.ModuleList, tree, where: str, put) -> None:
+    for li, layer in enumerate(layers):
+        sub = _index(tree, li, len(layers), where)
+        if isinstance(layer, nn.ModuleList):  # a second stacked axis
+            _load_stacked(layer, sub, f"{where}/{li}", put)
+        else:
+            _load(layer, sub, f"{where}/{li}", put)
 
 
 def _index(tree, li: int, n: int, where: str):
@@ -107,12 +116,17 @@ def _dump(module: nn.Module, leaf) -> Dict[str, Any]:
     for key, p in module.named_parameters(recurse=False):
         tree[key] = leaf(p)
     for key, child in module.named_children():
-        if isinstance(child, nn.ModuleList):  # stack layers on axis 0
-            layers = [_dump(layer, leaf) for layer in child]
-            tree[key] = _stack(layers)
-        else:
-            tree[key] = _dump(child, leaf)
+        tree[key] = _dump_stacked(child, leaf) \
+            if isinstance(child, nn.ModuleList) else _dump(child, leaf)
     return tree
+
+
+def _dump_stacked(layers: nn.ModuleList, leaf):
+    """Layers stacked on axis 0 (a ``ModuleList`` of ``ModuleList``s on
+    two axes)."""
+    return _stack([_dump_stacked(layer, leaf)
+                   if isinstance(layer, nn.ModuleList) else _dump(layer, leaf)
+                   for layer in layers])
 
 
 def _stack(layers):

@@ -36,8 +36,9 @@ class MonitorConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """One backbone.  The port runs the ``dense`` family; the other
-    families' fields are kept so configs stay copies of the reference's.
+    """One backbone.  The port runs the ``dense`` and ``hybrid`` families;
+    the other families' fields are kept so configs stay copies of the
+    reference's.
     Left out are the reference's XLA partitioner and scan knobs
     (``decode_cache_shard``, ``moe_impl``, ``zero1``, ``seq_parallel``,
     ``prefill_kv_shard``, ``scan_unroll``): they have no meaning in an

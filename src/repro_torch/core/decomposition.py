@@ -12,9 +12,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api as model_api
-from repro_torch.models.transformer import TransformerLM
 from repro_torch.nn.module import (Linear, linear, normal_, param,
-                                   resolve_device)
+                                   resolve_device, softplus)
 
 
 def sigma(x: torch.Tensor, kind: str = "sigmoid") -> torch.Tensor:
@@ -28,9 +27,10 @@ def sigma(x: torch.Tensor, kind: str = "sigmoid") -> torch.Tensor:
 
 def edge_arch(cfg: ArchConfig) -> ArchConfig:
     """The edge tower's config, derived from ``cfg.monitor``: a small dense
-    decoder with a 1k-token ring cache (the edge memory budget)."""
+    decoder with a 1k-token ring cache (the edge memory budget), for a
+    dense or a hybrid server, as in the reference."""
     m = cfg.monitor
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"edge tower for family {cfg.family!r} is not ported yet: see "
             "ROADMAP.md queue 1, item 7 (other families)")
@@ -73,9 +73,9 @@ class CollabLM(nn.Module):
         super().__init__()
         m = cfg.monitor
         device = resolve_device(device)
-        self.server = TransformerLM(cfg, device)
+        self.server = model_api.new_model(cfg, device)
         self.v_head = Linear(cfg.d_model, 1, bias=True, device=device)
-        self.edge = TransformerLM(edge_arch(cfg), device)
+        self.edge = model_api.new_model(edge_arch(cfg), device)
         self.u_head = UHead(m.d_model, m.n_features, device)
 
     def init_(self, gen: torch.Generator, cfg: ArchConfig):
@@ -95,11 +95,6 @@ def init_collab_lm(cfg: ArchConfig, gen: torch.Generator,
     model = CollabLM(cfg, device)
     model.init_(gen, cfg)
     return model
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: log1p(exp(-|x|)) + max(x, 0)."""
-    return torch.log1p(torch.exp(-torch.abs(x))) + torch.clamp(x, min=0.0)
 
 
 def monitor_score(model: CollabLM, cfg: ArchConfig, batch) -> torch.Tensor:

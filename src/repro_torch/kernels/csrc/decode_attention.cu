@@ -24,7 +24,10 @@
 //
 // Design: one block per (kv head, batch row), 128 threads, looping over
 // the cache in tiles of 64 rows.  A row of K or V is read as 16-byte
-// loads by D/8 neighbouring threads, and all G query heads of the group
+// loads by DP/8 neighbouring threads (DP: D rounded up to a power of two,
+// so a row's threads split the warp evenly; at D = 112, zamba2's shared
+// block, 16 threads take a row and the last two, whose columns are >= D,
+// load nothing and add zeros), and all G query heads of the group
 // use that one read (the GQA saving the TPU grid made explicit too).
 // Per tile: scores -> shared memory, one warp per query head updates the
 // running max/sum, then every thread folds p*V into f32 accumulators for
@@ -79,22 +82,30 @@ struct Elem<float> {
   __device__ static float from_float(float x) { return x; }
 };
 
+// D rounded up to a power of two (32, 64, 128, 256 map to themselves)
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ pos,
                         T* __restrict__ out, int C, int Hkv, float scale) {
-  constexpr int TPP = D / kEPT;          // threads per cache row
+  constexpr int DP = padded_dim<D>();
+  constexpr int TPP = DP / kEPT;         // threads per cache row
   constexpr int RPI = kThreads / TPP;    // rows in flight per iteration
   constexpr int RPT = kTile / RPI;       // rows per thread group per tile
-  static_assert(TPP <= 32 && kTile % RPI == 0, "unsupported head dim");
+  static_assert(D % kEPT == 0 && TPP <= 32 && kTile % RPI == 0,
+                "unsupported head dim");
   static_assert(kTile == 64, "the softmax step gives each lane two rows");
 
   __shared__ float s_p[G][kTile];        // scores, then p, of one tile
   __shared__ float s_alpha[G];
   __shared__ float s_m[G];
   __shared__ float s_l[G];
-  __shared__ float s_red[RPI][G][D];     // per-row-group partial outputs
+  __shared__ float s_red[RPI][G][DP];    // per-row-group partial outputs
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -102,13 +113,20 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int grp = tid / TPP;
   const int lane = tid % TPP;
   const int d0 = lane * kEPT;
+  const bool has_cols = d0 < D;          // false only for columns >= D
   const int Hq = Hkv * G;
   const int n_valid = min(pos[b] + 1, C);
 
   float qr[G][kEPT];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-    Elem<T>::load8(q + ((size_t)b * Hq + h * G + g) * D + d0, qr[g]);
+  for (int g = 0; g < G; ++g) {
+    if (has_cols) {
+      Elem<T>::load8(q + ((size_t)b * Hq + h * G + g) * D + d0, qr[g]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kEPT; ++e) qr[g][e] = 0.f;
+    }
+  }
 
   float acc[G][kEPT];
 #pragma unroll
@@ -135,7 +153,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float part[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) part[g] = 0.f;
-      if (r < n_valid) {
+      if (r < n_valid && has_cols) {
         float kx[kEPT];
         Elem<T>::load8(kb + (size_t)r * row_stride, kx);
 #pragma unroll
@@ -196,7 +214,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < RPT; ++i) {
       const int j = i * RPI + grp;
       const int r = t0 + j;
-      if (r < n_valid) {
+      if (r < n_valid && has_cols) {
         float vx[kEPT];
         Elem<T>::load8(vb + (size_t)r * row_stride, vx);
 #pragma unroll
@@ -257,6 +275,7 @@ int dispatch_dim(int D, int G, const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return dispatch_group<T, 32>(G, q, k, v, pos, out, B, C, Hkv, scale, stream);
     case 64: return dispatch_group<T, 64>(G, q, k, v, pos, out, B, C, Hkv, scale, stream);
+    case 112: return dispatch_group<T, 112>(G, q, k, v, pos, out, B, C, Hkv, scale, stream);
     case 128: return dispatch_group<T, 128>(G, q, k, v, pos, out, B, C, Hkv, scale, stream);
     case 256: return dispatch_group<T, 256>(G, q, k, v, pos, out, B, C, Hkv, scale, stream);
     default: return (int)cudaErrorInvalidValue;

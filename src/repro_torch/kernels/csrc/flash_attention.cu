@@ -28,8 +28,12 @@
 // online-softmax row max and row sum are half-warp shuffles; p goes to
 // shared memory rounded to the input dtype (the XLA form rounds p to the
 // value dtype before the PV product); then each thread accumulates an
-// 8 x (D/16) patch of the output.  Shared rows are padded by 4 elements so
-// the 8- and 16-byte reads of a half-warp fall in distinct banks.
+// 8 x (DP/16) patch of the output, DP being D rounded up to a multiple of
+// 32: at D = 112 (zamba2's shared block) the 16 threads of a row take 8
+// output columns each and the last two own only columns >= D, which V's
+// tile holds as zeros and the output store skips by index.  Shared Q and K
+// rows are padded by 4 elements so the 8- and 16-byte reads of a half-warp
+// fall in distinct banks.
 // KV tiles wholly above the causal diagonal or wholly outside the window are
 // skipped (flash_attention.py:35-43); p is re-masked to 0 where the score is
 // masked, so a row whose running max is still -inf adds nothing (:59-61);
@@ -112,9 +116,16 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
+// D rounded up to a multiple of 32: the output columns of a row split
+// evenly over its 16 threads (32, 64, 128 map to themselves; 112 to 128)
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + 31) / 32 * 32;
+}
+
 template <int D, typename T>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * ((size_t)kBK * D            // sV
+  return sizeof(T) * ((size_t)kBK * padded_dim<D>()  // sV
                       + (size_t)kBQ * (D + kPad)  // sQ
                       + (size_t)kBK * (D + kPad)  // sK
                       + (size_t)kBQ * (kBK + kPad));  // sP
@@ -127,15 +138,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float* __restrict__ lse, int S, int Tk, int Hkv, int G,
                        float scale, int window) {
   using E = Elem<T>;
-  constexpr int NJ = D / 16;        // output columns per thread
+  constexpr int DP = padded_dim<D>();  // sV row stride
+  constexpr int NJ = DP / 16;       // output columns per thread
   constexpr int RS = D + kPad;      // sQ / sK row stride
   constexpr int PS = kBK + kPad;    // sP row stride
   constexpr int C8 = D / 8;         // 8-element chunks per row
-  static_assert(D % 32 == 0 && D <= 128, "head dim 32, 64 or 128");
+  static_assert(D % 16 == 0 && DP <= 128, "head dim 32, 64, 112 or 128");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sV = reinterpret_cast<T*>(smem_raw);  // [kBK][D]
-  T* sQ = sV + kBK * D;                    // [kBQ][RS]
+  T* sV = reinterpret_cast<T*>(smem_raw);  // [kBK][DP], columns >= D zero
+  T* sQ = sV + kBK * DP;                   // [kBQ][RS]
   T* sK = sQ + kBQ * RS;                   // [kBK][RS]
   T* sP = sK + kBK * RS;                   // [kBQ][PS]
 
@@ -179,13 +191,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int c = tid; c < kBK * C8; c += kThreads) {
-      const int j = c / C8;
-      const int d0 = (c % C8) * 8;
-      const bool ok = k0 + j < Tk;
+    for (int c = tid; c < kBK * (DP / 8); c += kThreads) {
+      const int j = c / (DP / 8);
+      const int d0 = (c % (DP / 8)) * 8;
+      const bool ok = k0 + j < Tk && d0 < D;
       const size_t off = (size_t)(k0 + j) * kv_stride + d0;
-      row8_to_shared(kb + off, ok, sK + j * RS + d0);
-      row8_to_shared(vb + off, ok, sV + j * D + d0);
+      if (d0 < D) row8_to_shared(kb + off, ok, sK + j * RS + d0);
+      row8_to_shared(vb + off, ok, sV + j * DP + d0);
     }
     __syncthreads();
 
@@ -247,7 +259,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float vx[4][NJ];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const T* vrow = sV + (kk + e) * D + cg * NJ;
+        const T* vrow = sV + (kk + e) * DP + cg * NJ;
         if constexpr (NJ % 4 == 0) {
 #pragma unroll
           for (int jj = 0; jj < NJ; jj += 4) {
@@ -286,7 +298,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float li = fmaxf(l[i], 1e-30f);
     T* orow = o + (((size_t)b * S + r) * Hq + h) * D + cg * NJ;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) orow[jj] = E::from_f(acc[i][jj] / li);
+    for (int jj = 0; jj < NJ; ++jj)
+      if (cg * NJ + jj < D) orow[jj] = E::from_f(acc[i][jj] / li);
     if (cg == 0)
       lse[((size_t)b * Hq + h) * S + r] =
           m[i] == -INFINITY ? -INFINITY : m[i] + logf(li);
@@ -317,6 +330,7 @@ int dispatch_dim(int D, const void* q, const void* k, const void* v, void* o,
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, o, lse, B, S, Tk, Hkv, G, scale, window, s);
     case 64: return launch<T, 64>(q, k, v, o, lse, B, S, Tk, Hkv, G, scale, window, s);
+    case 112: return launch<T, 112>(q, k, v, o, lse, B, S, Tk, Hkv, G, scale, window, s);
     case 128: return launch<T, 128>(q, k, v, o, lse, B, S, Tk, Hkv, G, scale, window, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -22,7 +22,7 @@ from repro_torch.kernels.build import CudaKernel, stream_handle
 
 NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 GROUPS = (1, 2, 4, 8)
 
 KERNEL = CudaKernel(

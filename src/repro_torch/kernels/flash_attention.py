@@ -31,7 +31,7 @@ from repro_torch.kernels.build import CudaKernel, stream_handle
 
 NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 # f32 bytes of one score block (B, Hq, rows, T) in the plain forward and
 # the backward: bounds their temporaries (256 rows at the server shape)
 BLOCK_BYTES = 1 << 28

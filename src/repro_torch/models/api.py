@@ -1,19 +1,32 @@
-"""Uniform backbone API (``models/api.py``), dense part: the rest of the
-port talks to these functions only."""
+"""Uniform backbone API (``models/api.py``): the rest of the port talks to
+these functions only.  The dense and hybrid families are ported."""
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
+
+_FAMILY = {"dense": (transformer, transformer.TransformerLM),
+           "hybrid": (hybrid, hybrid.HybridLM)}
 
 
-def _impl(cfg: ArchConfig):
-    if cfg.family != "dense":
+def _family(cfg: ArchConfig):
+    if cfg.family not in _FAMILY:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: see ROADMAP.md "
             "queue 1, item 7 (other families)")
-    return transformer
+    return _FAMILY[cfg.family]
+
+
+def _impl(cfg: ArchConfig):
+    return _family(cfg)[0]
+
+
+def new_model(cfg: ArchConfig, device=None) -> nn.Module:
+    """The backbone's parameter module, not yet initialised."""
+    return _family(cfg)[1](cfg, device)
 
 
 def init_model(cfg: ArchConfig, gen: torch.Generator, device=None):

@@ -72,3 +72,8 @@ def linear(p: Linear, x: torch.Tensor, *,
     if p.b is not None:
         y = y + p.b.to(y.dtype)
     return y
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log1p(exp(-|x|)) + max(x, 0)."""
+    return torch.log1p(torch.exp(-torch.abs(x))) + torch.clamp(x, min=0.0)

@@ -21,11 +21,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api as model_api
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.module import resolve_device
+from repro_torch.nn.ssm import SSMCache
 
 # batch axis of every cache type, written out where the reference finds
 # it with an eval_shape probe (cache_batch_axes): KVCache leaves are
-# (layers, B, C, Hkv, D)
-CACHE_BATCH_AXIS = {KVCache: 1}
+# (layers, B, C, Hkv, D); SSMCache leaves (mamba layers, B, ...)
+CACHE_BATCH_AXIS = {KVCache: 1, SSMCache: 1}
 
 
 def zero_cache_rows(cache, rows: torch.Tensor) -> None:

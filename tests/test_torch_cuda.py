@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.monitor_combine import (monitor_combine_cuda,
                                                  monitor_combine_plain)
+from repro_torch.kernels.ssm_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.serving import MonitorSession, SessionConfig
 from repro_torch.training.loop import make_train_step, to_device, trainable
 from repro_torch.training.optimizer import AdamW
@@ -203,3 +204,159 @@ def test_smoke_train_step_card_matches_cpu(cuda):
         assert ma[key] == pytest.approx(mb[key], rel=1e-4, abs=1e-4), key
     for a, b in zip(pa, pb):
         np.testing.assert_allclose(a, b, atol=0.1 * lr, rtol=0)
+
+
+def _ssd_inputs(B, S, H, P, N, gen, device):
+    """Model-like SSD inputs: dt = softplus(normal), zamba2's decays
+    A = -linspace(1, 16, H), so la reaches about -11 per step."""
+    x = 0.5 * torch.randn((B, S, H, P), generator=gen, device=device)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=device))
+    A = -torch.linspace(1.0, 16.0, H, device=device)
+    Bm, Cm = (0.5 * torch.randn((B, S, N), generator=gen, device=device)
+              for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 256, 4, 32, 16, 64),      # tests/test_kernels.py:72-76
+    (1, 128, 2, 64, 64, 128),
+    (2, 512, 8, 16, 32, 32),
+    (2, 1, 4, 64, 64, 128),       # S = 1
+    (2, 300, 6, 64, 64, 128),     # ragged S
+    (1, 1024, 112, 64, 64, 128),  # zamba2 heads, state and chunk
+])
+def test_ssd_scan_kernel_vs_plain(cuda, B, S, H, P, N, chunk):
+    """y and h_final within the reference's SSD tolerance (atol 5e-5,
+    rtol 5e-4)."""
+    gen = torch.Generator(cuda).manual_seed(S)
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, gen, cuda)
+    xdt, la = x * dt[..., None], dt * A
+    y, h = ssd_scan_cuda(xdt, la, Bm, Cm, chunk=chunk)
+    py, ph = ssd_scan_plain(xdt, la, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, py, atol=5e-5, rtol=5e-4)
+    torch.testing.assert_close(h, ph, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_gradient_on_card(cuda):
+    """The SSDScan Function (kernel forward, plain-form backward) against
+    autograd through the plain version in f32 and in f64, rel 1e-4 of the
+    largest entry."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    ins = _ssd_inputs(2, 384, 8, 64, 64, gen, cuda)
+    dy = torch.randn(ins[0].shape, generator=gen, device=cuda)
+    dh = torch.randn((2, 8, 64, 64), generator=gen, device=cuda)
+
+    def plain(x, dt, A, Bm, Cm):
+        return ssd_scan_plain(x * dt[..., None], dt * A, Bm, Cm, chunk=128)
+
+    grads = []
+    kernels.reset_launch_counts()
+    for fn, dtype in ((lambda *a: ops.ssd_scan(*a, chunk=128), torch.float32),
+                      (plain, torch.float32), (plain, torch.float64)):
+        leaves = [t.to(dtype).clone().requires_grad_(True) for t in ins]
+        y, h = fn(*leaves)
+        ((y * dy.to(dtype)).sum() + (h * dh.to(dtype)).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    assert kernels.launch_counts()["ssd_scan"] == 1
+    for a, b, b64 in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+        torch.testing.assert_close(a.double(), b64, rtol=1e-4,
+                                   atol=1e-4 * float(b64.abs().max()))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_refuses_unsupported_shapes(cuda):
+    z = torch.zeros((1, 32, 2, 40), device=cuda)
+    la, bc = torch.zeros((1, 32, 2), device=cuda), torch.zeros((1, 32, 16),
+                                                               device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ssd_scan_cuda(z, la, bc, bc, chunk=32)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan_cuda(z[..., :32].contiguous().half(), la, bc, bc)
+    with pytest.raises(ValueError, match="chunk <= 128"):
+        ssd_scan_cuda(z[..., :32].contiguous(), la, bc, bc, chunk=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,window", [
+    (2, 512, 32, 0),      # zamba2 shared block, causal
+    (1, 333, 4, 37),      # ragged, window
+])
+def test_flash_attention_kernel_head_dim_112(cuda, dtype, B, S, H, window):
+    """zamba2's head_dim 112 (32/32 heads): bf16 within 2e-2 and the
+    per-entry rounding bound, f32 within 2e-5."""
+    gen = torch.Generator(cuda).manual_seed(S)
+    q, k, v = (_rand((B, S, H, 112), dtype, gen, cuda) for _ in range(3))
+    o, lse = flash_attention_cuda(q, k, v, window=window)
+    po, plse = flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, plse, atol=2e-5, rtol=2e-5)
+    if dtype == torch.bfloat16:
+        pv = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                   window=window)[0]
+        _, e = torch.frexp(po.float())
+        bound = 1.25 * 2.0 ** -8 * pv + 2 * torch.ldexp(torch.ones_like(pv),
+                                                         e - 8)
+        assert ((o.float() - po.float()).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G", [1, 4])
+def test_decode_attention_kernel_head_dim_112(cuda, dtype, G):
+    """zamba2's shared block decodes with G = 1 (32/32 heads) at D = 112;
+    a grouped case too, over empty, full, wrapped and ragged positions."""
+    B, Hkv, C = 8, 32 // G, 512
+    gen = torch.Generator(cuda).manual_seed(G)
+    q = _rand((B, Hkv * G, 112), dtype, gen, cuda)
+    k = _rand((B, C, Hkv, 112), dtype, gen, cuda)
+    v = _rand((B, C, Hkv, 112), dtype, gen, cuda)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for pos in (0, C - 1, 2 * C + 3,
+                torch.randint(0, 2 * C, (B,), generator=gen, device=cuda)):
+        out = decode_attention_cuda(q, k, v, pos)
+        ref = decode_attention_plain(q, k, v, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+def test_zamba2_smoke_on_card_matches_cpu(cuda):
+    """zamba2 SMOKE (f32, chunk 16 so the SSD kernel takes it) on the
+    card through the kernels against the CPU through the plain versions:
+    forward logits within 1e-4, then six decode steps' hidden states."""
+    from repro_torch.models import api
+    cfg = registry.get_smoke("zamba2-7b").replace(ssm_chunk=16)
+    cpu = torch.device("cpu")
+    model_cpu = init_collab_lm(cfg, torch.Generator().manual_seed(0), cpu)
+    model_dev = copy.deepcopy(model_cpu).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        a = api.forward(model_dev.server, cfg, {"tokens": toks.to(cuda)})
+        b = api.forward(model_cpu.server, cfg, {"tokens": toks})
+    torch.testing.assert_close(a["logits"].cpu(), b["logits"], atol=1e-4,
+                               rtol=1e-4)
+    counts = kernels.launch_counts()
+    assert counts["ssd_scan"] == cfg.n_layers
+    assert counts["flash_attention"] == cfg.n_layers // cfg.shared_attn_every
+    caches = [api.init_cache(cfg, 2, 16, d) for d in (cuda, cpu)]
+    with torch.inference_mode():
+        for t in range(6):
+            ha = api.decode_step(model_dev.server, cfg, caches[0],
+                                 toks[:, t].to(cuda), t)[1]
+            hb = api.decode_step(model_cpu.server, cfg, caches[1],
+                                 toks[:, t], t)[1]
+            torch.testing.assert_close(ha.cpu(), hb, atol=1e-4, rtol=1e-4)
+    assert kernels.launch_counts()["decode_attention"] == 6 * (
+        cfg.n_layers // cfg.shared_attn_every)

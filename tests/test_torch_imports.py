@@ -73,3 +73,28 @@ def test_model_constructors_default_to_the_card(monkeypatch, entry):
                 {}, SERVING, None)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+@pytest.mark.parametrize("entry", ["init_collab_lm", "init_model",
+                                   "init_cache", "init_ssm_cache",
+                                   "collab_from_numpy"])
+def test_hybrid_constructors_default_to_the_card(monkeypatch, entry):
+    """The hybrid (zamba2-7b) model, cache and SSM-state constructors read
+    device=None as CUDA too, and raise without a card."""
+    from repro_torch import bridge
+    from repro_torch.configs.zamba2_7b import SMOKE
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.models import api
+    from repro_torch.nn.ssm import init_ssm_cache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    call = {"init_collab_lm": lambda: init_collab_lm(SMOKE, gen),
+            "init_model": lambda: api.init_model(SMOKE, gen),
+            "init_cache": lambda: api.init_cache(SMOKE, 2, 8),
+            "init_ssm_cache": lambda: init_ssm_cache(
+                2, SMOKE.d_model, expand=SMOKE.ssm_expand,
+                state=SMOKE.ssm_state, conv_k=SMOKE.ssm_conv, n_layers=1),
+            "collab_from_numpy": lambda: bridge.collab_from_numpy(
+                {}, SMOKE, None)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
