@@ -181,6 +181,13 @@ def phase_build():
         print(f"[build] {src}: {state}; {len(regs)} kernel instantiations, "
               f"registers max {max(regs, default=0)}, spill stores max "
               f"{max(spills, default=0)} bytes (ptxas -v)")
+        entry = None  # the instantiations that spill, by mangled name
+        for line in info["log"].splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            entry = found.group(1) if found else entry
+            found = re.search(r"(\d+) bytes spill stores", line)
+            if found and int(found.group(1)) and entry:
+                print(f"[build]   {entry} spills {found.group(1)} bytes")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -189,8 +196,12 @@ def phase_kernels(torch, dev, seed: int, max_len: int, srv, edge, shared):
     and edge shapes and at zamba2's shared block, head_dim 112); returns
     the kernels' JSON records (without their main-path launch counts)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                      decode_attention_plain)
+    from repro_torch.kernels.decode_attention import (SPLITS,
+                                                      decode_attention_cuda,
+                                                      decode_attention_plain,
+                                                      decode_attention_split,
+                                                      decode_plan,
+                                                      max_active_clusters)
     from repro_torch.kernels.monitor_combine import (monitor_combine_cuda,
                                                      monitor_combine_plain)
     gen = torch.Generator(dev).manual_seed(seed)
@@ -206,9 +217,11 @@ def phase_kernels(torch, dev, seed: int, max_len: int, srv, edge, shared):
         k = torch.randn((B, C, Hkv, D), generator=gen, device=dev).to(bf16)
         v = torch.randn((B, C, Hkv, D), generator=gen, device=dev).to(bf16)
         ragged = torch.randint(0, 2 * C, (B,), generator=gen, device=dev)
+        short = torch.arange(B, device=dev) % 7  # 1..7 rows: empty splits
         for case, pos in (("pos=0", 0), ("ragged pos vector", ragged),
                           (f"wrapped ring pos={2 * C + 5}", 2 * C + 5),
-                          (f"full pos={C - 1}", C - 1)):
+                          (f"full pos={C - 1}", C - 1),
+                          ("pos vector 0..6", short)):
             out = decode_attention_cuda(q, k, v, pos)
             ref = decode_attention_plain(q, k, v, pos)
             torch.cuda.synchronize()
@@ -249,18 +262,40 @@ def phase_kernels(torch, dev, seed: int, max_len: int, srv, edge, shared):
                    + q.numel() * 2)
         n_ops = 4.0 * B * Hq * n_valid * D
         bms, by = bound_ms(n_bytes, n_ops, BF16_FLOPS)
+        plan = decode_plan(B, Hkv, C)
+        resident = max_active_clusters(D, Hq // Hkv, bf16, plan["splits"])
         print(f"[kernels] decode_attention time {label} B={B} Hq={Hq} "
               f"Hkv={Hkv} D={D} C={C} pos={pos_val} (cache cold, "
               f"{n_copies} copies): kernel {ms * 1e3:.2f} us (host-bound "
               f"per call {host * 1e3:.2f} us), plain "
               f"{plain * 1e3:.2f} us, library "
               f"{'n/a' if lib is None else f'{lib * 1e3:.2f} us'}, bound "
-              f"{bms * 1e3:.2f} us ({by}, {n_bytes / 1e6:.2f} MB); blocks "
-              f"{B * Hkv} on 132 SMs")
+              f"{bms * 1e3:.2f} us ({by}, {n_bytes / 1e6:.2f} MB); grid "
+              f"{plan['blocks']} blocks in {plan['clusters']} clusters of "
+              f"{plan['splits']} splits on 132 SMs ({resident} clusters "
+              f"resident at once)")
         return ms, plain, lib, bms, by
 
     ms, plain, lib, bms, by = time_decode(*srv, max_len, max_len - 1,
                                           "server full cache", True)
+    # the split the plan picks against every other, at the server shape
+    # and at zamba2's shared block
+    for tower, (B, Hq, Hkv, D) in (("server", srv), ("zamba2 shared", shared)):
+        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(bf16)
+        n_copies = max(2, math.ceil(200e6 / (2 * B * max_len * Hkv * D * 2)))
+        ks, vs = ([torch.randn((B, max_len, Hkv, D), generator=gen,
+                               device=dev).to(bf16) for _ in range(n_copies)]
+                  for _ in range(2))
+        planned = decode_plan(B, Hkv, max_len)["splits"]
+        for pos_val in (max_len - 1, 63):
+            pos = torch.full((B,), pos_val, dtype=torch.int32, device=dev)
+            sweep = {n: time_ms(torch, lambda i: decode_attention_split(
+                q, ks[i % n_copies], vs[i % n_copies], pos, n), 100)[0]
+                * 1e3 for n in SPLITS}
+            print(f"[kernels] decode_attention {tower} pos={pos_val} by "
+                  f"split count (cache cold, planned {planned}): "
+                  + ", ".join(f"{n}: {us:.2f} us" for n, us in sweep.items()))
+        del ks, vs
     time_decode(*srv, max_len, 63, "server at the serve phase's last step",
                 False)
     C_edge = min(max_len, 1024)
@@ -328,7 +363,8 @@ def phase_flash(torch, dev, seed: int, shapes):
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (flash_attention_backward,
                                                      flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_plan)
     gen = torch.Generator(dev).manual_seed(seed)
 
     def qkv(B, S, Hq, Hkv, D, dtype):
@@ -420,6 +456,7 @@ def phase_flash(torch, dev, seed: int, shapes):
         n_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D) + 4 * B * Hq * S
         bms, by = bound_ms(n_bytes, n_ops, BF16_FLOPS)
         times[tower] = (ms, plain, lib, bms, by)
+        plan = flash_plan(B, S, Hq, D, torch.bfloat16)
         print(f"[kernels] flash_attention time {tower} B={B} S={S} Hq={Hq} "
               f"Hkv={Hkv} D={D} window={window}: kernel {ms * 1e3:.1f} us "
               f"({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain * 1e3:.1f} "
@@ -427,7 +464,21 @@ def phase_flash(torch, dev, seed: int, shapes):
               f"{', boolean window mask' if window else ', is_causal'}), "
               f"bound {bms * 1e3:.2f} us ({by}: {n_ops:.3e} flop, "
               f"{n_bytes / 1e6:.2f} MB); backward (tensor ops) "
-              f"{bwd * 1e3:.1f} us")
+              f"{bwd * 1e3:.1f} us; grid {plan['blocks']} blocks of "
+              f"{plan['threads']} threads ({plan['query_tiles']} query "
+              f"tiles of {plan['block_q']} rows x {Hq} heads x {B}), K/V "
+              f"tiles of {plan['block_k']} x {plan['box_cols']}, "
+              f"{plan['smem_bytes']} bytes of shared memory")
+    # the zero-filled columns at D = 112: the zamba2 shape at D = 128 does
+    # the same products on whole boxes
+    B, S, Hq, Hkv, D, window = shapes["zamba2 shared"]
+    q, k, v = qkv(B, S, Hq, Hkv, 128, torch.bfloat16)
+    ms128, _ = time_ms(torch, lambda i: flash_attention_cuda(
+        q, k, v, window=window), 10)
+    ms112 = times["zamba2 shared"][0]
+    print(f"[kernels] flash_attention time zamba2 shared at D=128 instead of "
+          f"{D}: kernel {ms128 * 1e3:.1f} us; D={D} takes "
+          f"{ms112 / ms128:.3f} of it for {D / 128:.3f} of the useful work")
     ms, plain, lib, bms, by = times["server"]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -97,6 +97,7 @@ class CudaKernel:
         self.source, self.symbol = source, symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._lib = None
         self._fn = None
         self._err = None
 
@@ -104,7 +105,7 @@ class CudaKernel:
         lib_path = library_path(self.source)
         if not lib_path.exists():
             build_all([self.source])
-        lib = ctypes.CDLL(str(lib_path))
+        lib = self._lib = ctypes.CDLL(str(lib_path))
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
@@ -121,6 +122,19 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{rc} ({self._err(rc).decode()})")
         self.launches += 1
+
+    def call(self, symbol: str, argtypes, *args) -> None:
+        """Call another entry point of the same library (a query, not a
+        launch: not counted); raises if it returns a non-zero
+        ``cudaError_t``."""
+        if self._lib is None:
+            self._bind()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{symbol} failed: CUDA error {rc} "
+                               f"({self._err(rc).decode()})")
 
 
 def stream_handle(device) -> ctypes.c_void_p:

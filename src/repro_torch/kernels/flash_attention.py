@@ -3,7 +3,9 @@ PyTorch version, the wrapper of the hand-written Hopper kernel
 ``csrc/flash_attention.cu``, and the gradient in tensor ops.
 
 The kernel replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py:73`` (``flash_attention``).  Both
+``repro/kernels/flash_attention.py:73`` (``flash_attention``): in bf16 a
+warp-specialised tensor-core kernel (TMA loads, ``wgmma`` products), in
+f32 a scalar one (see the note in the CUDA source).  Both
 forward versions return the output and the per-row log-sum-exp
 ``lse`` (B, Hq, S) f32.  The plain version is the reference's XLA form
 (``repro/nn/attention.py:90``, ``chunked_attention``), blockwise over
@@ -39,7 +41,35 @@ BLOCK_BYTES = 1 << 28
 KERNEL = CudaKernel(
     "flash_attention.cu", "flash_attention",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# the tilings csrc/flash_attention.cu instantiates (it checks block_q and
+# block_k against its own): bf16 runs the tensor-core kernel, two consumer
+# warpgroups and a producer warp on 128 query rows, K/V tiles loaded as
+# boxes of 64 columns (128 bytes) into a 2-stage ring; f32 the scalar one
+TC_THREADS, TC_BLOCK_Q, TC_BLOCK_K, TC_STAGES = 288, 128, 128, 2
+F32_THREADS, F32_BLOCK_Q, F32_BLOCK_K = 128, 64, 64
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
+
+
+def flash_plan(B: int, S: int, Hq: int, D: int, dtype: torch.dtype) -> dict:
+    """The tiling and grid ``flash_attention_cuda`` launches for these
+    shapes.  bf16: query tiles of 128 rows, ``box_cols`` = D rounded up to
+    64 or 128 columns (the columns past D are TMA's zero fill), K/V tiles
+    of 128 rows (a consumer thread holds block_k/2 score and box_cols/2
+    output floats in registers).  f32: the scalar kernel's 64-row tiles.
+    One block per (query tile, q head, batch row)."""
+    if dtype == torch.bfloat16:
+        cols = 64 if D <= 64 else 128
+        bq, bk, threads = TC_BLOCK_Q, TC_BLOCK_K, TC_THREADS
+        smem = 1024 + 2 * (bq * cols + 2 * TC_STAGES * bk * cols)
+    else:
+        cols = (D + 31) // 32 * 32
+        bq, bk, threads = F32_BLOCK_Q, F32_BLOCK_K, F32_THREADS
+        smem = 4 * (bk * cols + bq * (D + 4) + bk * (D + 4) + bq * (bk + 4))
+    tiles = -(-S // bq)
+    return {"block_q": bq, "block_k": bk, "box_cols": cols,
+            "threads": threads, "smem_bytes": smem, "query_tiles": tiles,
+            "blocks": B * Hq * tiles}
 
 
 def _block_rows(B: int, Hq: int, S: int, T: int) -> int:
@@ -173,10 +203,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    plan = flash_plan(B, S, Hq, D, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            lse.data_ptr(), B, S, T, Hkv, Hq // Hkv, D, _DTYPES[q.dtype],
-           1.0 / math.sqrt(D), int(window),
-           stream_handle(q.device))
+           1.0 / math.sqrt(D), int(window), plan["block_q"],
+           plan["block_k"], stream_handle(q.device))
     return o, lse

@@ -18,7 +18,8 @@ from repro_torch.core.decomposition import init_collab_lm
 from repro_torch.data.tokens import lm_batches
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                  decode_attention_plain)
+                                                  decode_attention_plain,
+                                                  decode_attention_split)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.monitor_combine import (monitor_combine_cuda,
@@ -41,23 +42,30 @@ def _rand(shape, dtype, gen, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,Hq,Hkv,D,C", [
     (8, 32, 8, 128, 512),   # granite-8b server tower, ring
     (8, 4, 4, 64, 512),     # granite-8b edge tower, ring
     (3, 4, 2, 64, 32),      # granite-8b SMOKE
-    (4, 2, 2, 32, 40),      # paper SERVING, no window, C % 64 != 0
+    (4, 2, 2, 32, 40),      # paper SERVING, no window, C % 32 != 0
     (2, 8, 1, 256, 100),
 ])
-def test_decode_attention_kernel_vs_plain(cuda, dtype, B, Hq, Hkv, D, C):
+def test_decode_attention_kernel_vs_plain(cuda, dtype, B, Hq, Hkv, D, C,
+                                          splits):
+    """The cache split as planned (None) and over 1, 2, 4 and 8 blocks of
+    a cluster, at an empty, full and wrapped prefix, a ragged position
+    vector and one whose 1..7 valid rows leave splits empty."""
     gen = torch.Generator(cuda).manual_seed(0)
     q = _rand((B, Hq, D), dtype, gen, cuda)
     k = _rand((B, C, Hkv, D), dtype, gen, cuda)
     v = _rand((B, C, Hkv, D), dtype, gen, cuda)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     for pos in (0, C - 1, 2 * C + 3,
-                torch.randint(0, 2 * C, (B,), generator=gen, device=cuda)):
-        out = decode_attention_cuda(q, k, v, pos)
+                torch.randint(0, 2 * C, (B,), generator=gen, device=cuda),
+                torch.arange(B, device=cuda) % 7):
+        out = (decode_attention_cuda(q, k, v, pos) if splits is None
+               else decode_attention_split(q, k, v, pos, splits))
         ref = decode_attention_plain(q, k, v, pos)
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
@@ -119,6 +127,10 @@ def test_session_on_card_goes_through_kernels(cuda, arch):
     (3, 1000, 4, 2, 32, 0),     # ragged S
     (2, 1, 4, 2, 64, 0),        # S = 1
     (1, 333, 8, 1, 128, 37),    # MQA, ragged, window
+    (2, 4096, 4, 4, 64, 1024),  # granite-8b edge tower at full length
+    (2, 129, 8, 2, 64, 0),      # ragged against the 128-row query tile
+    (1, 191, 4, 4, 128, 0),
+    (2, 300, 4, 2, 32, 50),     # window < the 128-row K/V tile at D = 32
 ])
 def test_flash_attention_kernel_vs_plain(cuda, dtype, B, S, Hq, Hkv, D,
                                          window):
@@ -287,6 +299,7 @@ def test_ssd_scan_kernel_refuses_unsupported_shapes(cuda):
 @pytest.mark.parametrize("B,S,H,window", [
     (2, 512, 32, 0),      # zamba2 shared block, causal
     (1, 333, 4, 37),      # ragged, window
+    (2, 300, 4, 40),      # window < the 64-row K/V tile at D = 112
 ])
 def test_flash_attention_kernel_head_dim_112(cuda, dtype, B, S, H, window):
     """zamba2's head_dim 112 (32/32 heads): bf16 within 2e-2 and the
