@@ -137,6 +137,24 @@ def time_ms(torch, fn, iters: int):
     return device, (time.perf_counter() - t0) * 1e3 / iters
 
 
+def device_kernels(torch, fn, calls: int = 5) -> list:
+    """The device kernels one call of ``fn`` runs, by name, as the profiler
+    sees them over ``calls`` calls (raises if the counts differ)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [re.search(r"(\w+(?:<[^<>]*>)?)\(", e.name).group(1)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(names) % calls == 0 and len(names) > 0,
+          f"profiler saw {len(names)} device kernels in {calls} calls")
+    return names[:len(names) // calls]
+
+
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / peak_ops
@@ -202,7 +220,12 @@ def phase_kernels(torch, dev, seed: int, max_len: int, srv, edge, shared):
                                                       decode_attention_split,
                                                       decode_plan,
                                                       max_active_clusters)
-    from repro_torch.kernels.monitor_combine import (monitor_combine_cuda,
+    from repro_torch.kernels.monitor_combine import (MAX_BLOCKS,
+                                                     ONE_BLOCK_MAX, THREADS,
+                                                     combine_blocks,
+                                                     launch_floor,
+                                                     monitor_combine_blocks,
+                                                     monitor_combine_cuda,
                                                      monitor_combine_plain)
     gen = torch.Generator(dev).manual_seed(seed)
     bf16 = torch.bfloat16
@@ -316,29 +339,49 @@ def phase_kernels(torch, dev, seed: int, max_len: int, srv, edge, shared):
     for n in (srv[0], 1000, 2**20):
         u, v = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
         f = u + 0.1 * torch.randn(n, generator=gen, device=dev)
-        got = monitor_combine_cuda(u, v, f, s=0.2, threshold=0.1, margin=0.25)
         want = monitor_combine_plain(u, v, f, s=0.2, threshold=0.1, margin=0.25)
-        torch.cuda.synchronize()
-        err = max_err(got[0], want[0])
-        worst = max(worst, err)
-        print(f"[kernels] monitor_combine N={n}: fhat max_abs_err={err:.3e} "
-              f"(f32 tol {TOL['float32']}), mask equal "
-              f"{bool(torch.equal(got[1], want[1]))}, counts "
-              f"{got[2].tolist()} vs {want[2].tolist()}")
-        check(within(got[0], want[0], TOL["float32"]),
-              f"monitor_combine fhat N={n}")
-        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-              f"monitor_combine mask/counts N={n}")
+        for rep in range(2):  # twice on one stream: nothing carried over
+            got = monitor_combine_cuda(u, v, f, s=0.2, threshold=0.1,
+                                       margin=0.25)
+            torch.cuda.synchronize()
+            err = max_err(got[0], want[0])
+            worst = max(worst, err)
+            same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+            print(f"[kernels] monitor_combine N={n} call {rep + 1} "
+                  f"({combine_blocks(n)} blocks): fhat "
+                  f"max_abs_err={err:.3e}, bitwise equal to the plain version "
+                  f"fhat/mask/counts {same}, counts {got[2].tolist()}")
+            check(all(same), f"monitor_combine bitwise N={n}")
     n = srv[0]  # the serving path combines one score per stream
     u, v = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
+    kinds = device_kernels(torch, lambda: monitor_combine_cuda(u, v, u, s=0.2))
+    print(f"[kernels] monitor_combine N={n}: device kernels per call "
+          f"{kinds} (profiler)")
+    check(len(kinds) == 1, f"monitor_combine one device kernel at N={n}")
     ms, host = time_ms(torch, lambda i: monitor_combine_cuda(u, v, u, s=0.2),
                        200)
+    floor, _ = time_ms(torch, lambda i: launch_floor(dev), 200)
     plain, _ = time_ms(torch, lambda i: monitor_combine_plain(u, v, u, s=0.2),
                        100)
     bms, by = bound_ms(3 * n * 4 + 2 * n * 4 + 2 * 4, 8.0 * n, F32_FLOPS)
     print(f"[kernels] monitor_combine time N={n}: kernel {ms * 1e3:.2f} us "
-          f"(host-bound per call {host * 1e3:.2f} us), "
-          f"plain {plain * 1e3:.2f} us, bound {bms * 1e3:.5f} us ({by})")
+          f"(host-bound per call {host * 1e3:.2f} us), launch floor (an "
+          f"empty one-warp kernel) {floor * 1e3:.2f} us, plain "
+          f"{plain * 1e3:.2f} us, bound {bms * 1e3:.5f} us ({by})")
+    # the one-block path against the grid, to place ONE_BLOCK_MAX
+    sweep = []
+    for n_s in (8, 256, 1024, 2048, 4096, 16384):
+        us, vs = (torch.randn(n_s, generator=gen, device=dev)
+                  for _ in range(2))
+        grid = max(2, min(-(-n_s // THREADS), MAX_BLOCKS))
+        one, _ = time_ms(torch, lambda i: monitor_combine_blocks(
+            us, vs, us, 1, s=0.2), 100)
+        many, _ = time_ms(torch, lambda i: monitor_combine_blocks(
+            us, vs, us, grid, s=0.2), 100)
+        sweep.append(f"N={n_s}: one block {one * 1e3:.2f} us, {grid} blocks "
+                     f"{many * 1e3:.2f} us")
+    print(f"[kernels] monitor_combine one block against the grid (planned "
+          f"one block up to N={ONE_BLOCK_MAX}): " + "; ".join(sweep))
     records["monitor_combine"] = dict(
         name="monitor_combine", route="cuda",
         source="src/repro_torch/kernels/csrc/monitor_combine.cu",
@@ -487,15 +530,18 @@ def phase_flash(torch, dev, seed: int, shapes):
                 bound_by=by, library_ms=lib)
 
 
-def ssd_flops(S: int, L: int, P: int, N: int) -> float:
-    """Flops of one (batch row, head) of the SSD scan in its
-    lower-triangular form, chunk by chunk: C B^T and G @ xdt over the
-    n(n+1)/2 pairs s <= t of a chunk of n rows, then the carried state
-    through C and the state update, n N P multiply-adds each."""
+def ssd_flops(B: int, S: int, H: int, L: int, P: int, N: int) -> float:
+    """Flops the SSD scan's inputs need in its lower-triangular form, chunk
+    by chunk: C B^T over the n(n+1)/2 pairs s <= t of a chunk of n rows,
+    once per (batch row, chunk), as B and C are shared by the heads; then
+    per (batch row, head, chunk) G @ xdt over the same pairs and the
+    carried state through C and the state update, n N P multiply-adds
+    each."""
     total = 0.0
     for c0 in range(0, S, L):
         n = min(L, S - c0)
-        total += n * (n + 1) * (N + P) + 4.0 * n * N * P
+        total += B * n * (n + 1) * N
+        total += B * H * (n * (n + 1) * P + 4.0 * n * N * P)
     return total
 
 
@@ -505,10 +551,15 @@ def phase_ssd(torch, dev, seed: int, shape):
     the reference's test grid, S = 1 and a ragged S, and in every case
     against the plain form in f64 at the same tolerance; the SSDScan
     backward against autograd through the plain version in f32 and in f64
-    at the full shape; then the kernel's, the plain version's and the backward's
-    times.  Returns the kernel's JSON record (without launches)."""
+    at the full shape; then the device kernels a call (profiler), the time
+    of every tile the plan could pick, and the kernel's, the plain
+    version's and the backward's times, with the bound at the rate of the
+    products the kernel runs (3xTF32).  Returns the kernel's JSON record
+    (without launches)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssm_scan import ssd_scan_cuda, ssd_scan_plain
+    from repro_torch.kernels.ssm_scan import (TILES, max_active_blocks,
+                                              ssd_plan, ssd_scan_cuda,
+                                              ssd_scan_plain, ssd_scan_tiled)
     gen = torch.Generator(dev).manual_seed(seed)
 
     def inputs(B, S, H, P, N, decays="zamba2"):
@@ -605,8 +656,28 @@ def phase_ssd(torch, dev, seed: int, shape):
     # times at the train shape
     x, dt, A, Bm, Cm = ins
     xdt, la = x * dt[..., None], dt * A
+    plan = ssd_plan(B, S, H, P, N, chunk)
+    kinds = device_kernels(torch, lambda: ssd_scan_cuda(xdt, la, Bm, Cm,
+                                                        chunk=chunk))
+    print(f"[kernels] ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk}: "
+          f"device kernels per call {len(kinds)} (profiler: "
+          f"{', '.join(kinds)})")
+    check(len(kinds) == 2, "ssd_scan is two device kernels a call")
     ms, host = time_ms(torch, lambda i: ssd_scan_cuda(xdt, la, Bm, Cm,
                                                       chunk=chunk), 10)
+    sweep = {pt: time_ms(torch, lambda i: ssd_scan_tiled(
+        xdt, la, Bm, Cm, pt, chunk=chunk), 10)[0] * 1e3
+        for pt in TILES if P % pt == 0}
+    resident = {pt: max_active_blocks(pt, chunk, N) for pt in sweep}
+    print(f"[kernels] ssd_scan by tile (columns of P a block; planned "
+          f"{plan['pt']}: {plan['blocks']} blocks, {plan['smem_bytes']} "
+          f"bytes of shared memory, {plan['resident']} blocks an SM, "
+          f"{plan['rounds']} rounds on the busiest of 132 SMs, "
+          f"{plan['idle']:.3f} of the last round idle): "
+          + ", ".join(f"{pt}: {us:.1f} us ({resident[pt]} blocks an SM)"
+                      for pt, us in sweep.items()))
+    check(resident[plan["pt"]] == plan["resident"],
+          "ssd_plan's blocks an SM are the card's")
     plain_ms, _ = time_ms(torch, lambda i: ssd_scan_plain(
         xdt, la, Bm, Cm, chunk=chunk), 3)
     leaves = [t.detach().requires_grad_(True) for t in (xdt, la, Bm, Cm)]
@@ -618,16 +689,18 @@ def phase_ssd(torch, dev, seed: int, shape):
     bwd, _ = time_ms(torch, backward, 3)
     n_bytes = 4.0 * (2 * xdt.numel() + la.numel() + Bm.numel() + Cm.numel()
                      + B * H * P * N)
-    n_ops = B * H * ssd_flops(S, chunk, P, N)
-    bms, by = bound_ms(n_bytes, n_ops, F32_FLOPS)
+    n_ops = ssd_flops(B, S, H, chunk, P, N)
+    # the kernel's products run in 3xTF32: three TF32 products each
+    bms, by = bound_ms(n_bytes, n_ops, TF32_FLOPS / 3)
     print(f"[kernels] ssd_scan time B={B} S={S} H={H} P={P} N={N} "
           f"chunk={chunk}: kernel {ms * 1e3:.1f} us ({n_ops / ms / 1e9:.2f} "
           f"TFLOP/s, host-bound per call {host * 1e3:.1f} us), plain "
           f"{plain_ms * 1e3:.1f} us, library none, bound {bms * 1e3:.1f} us "
-          f"({by}: {n_ops:.3e} flop at the f32 rate, {n_bytes / 1e6:.1f} MB; "
-          f"at the TF32 rate {n_ops / TF32_FLOPS * 1e6:.1f} us, memory "
-          f"{n_bytes / HBM_BYTES_PER_S * 1e6:.1f} us); backward (plain form "
-          f"under autograd) {bwd * 1e3:.1f} us; blocks {B * H} on 132 SMs")
+          f"({by}, 3xTF32 products; {n_ops:.4e} flop, {n_bytes / 1e6:.1f} "
+          f"MB: {n_ops / F32_FLOPS * 1e6:.1f} us at the f32 rate, "
+          f"{n_ops / (TF32_FLOPS / 3) * 1e6:.1f} us at the 3xTF32 rate, "
+          f"memory {n_bytes / HBM_BYTES_PER_S * 1e6:.1f} us); backward "
+          f"(plain form under autograd) {bwd * 1e3:.1f} us")
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssm_scan.py:53",
@@ -1111,8 +1184,8 @@ def _train_kind(name: str) -> str:
     """The kind of a train-step kernel, from its name."""
     if "flash_attention_kernel" in name:
         return "flash_attention kernel"
-    if "ssd_scan_kernel" in name:
-        return "ssd_scan kernel"
+    if "ssd_prep_kernel" in name or "ssd_chunk_kernel" in name:
+        return "ssd_scan kernels"
     if "multi_tensor" in name or "foreach" in name:
         return "optimizer (foreach)"
     if any(w in name for w in ("gemm", "nvjet", "cutlass", "cublas")):

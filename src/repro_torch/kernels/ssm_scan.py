@@ -16,10 +16,16 @@ The TPU kernel drops the final state (``repro/kernels/ops.py:64``); both
 versions here return it.  The gradient is ``kernels.ops.SSDScan``: the
 reference has no backward kernel and trains through XLA's gradient of
 ``ssd_chunked``.
+
+One call of the kernel is two device kernels: the first writes C B^T
+once per (batch row, chunk) and the f64 cumsum of la per (batch row,
+head, chunk); the second runs the scan with the P columns split over
+blocks, the tile chosen by ``ssd_plan`` from the shapes alone.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -27,12 +33,63 @@ import torch
 from repro_torch.kernels.build import CudaKernel, stream_handle
 
 # the kernel's limits: a chunk of at most 128 rows, P and N at most 64,
-# each a multiple of 16 (its 16 x 16 thread layout)
+# each a multiple of 16 (the tensor cores' 16-row tiles)
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 64
+# the columns of P one scan block owns, and the H100 it is planned for
+TILES = (64, 32, 16)
+SM_COUNT = 132
+SMEM_PER_SM = 233_472     # 228 KB of shared memory an SM
+SMEM_RESERVED = 1_024     # that the card keeps for each resident block
+SMEM_LIMIT = 232_448      # the most one block may use
+THREADS_PER_SM = 2_048
+THREADS = 128             # a scan block: four warps, each on all pt columns
+# blocks an SM each tile's registers are budgeted for (its launch bounds)
+REG_BLOCKS = {64: 2, 32: 3, 16: 3}
+# what a block's G weights and C B^T reads cost, in columns of products
+# (fitted to chip_smoke.py's tile sweep at the hybrid train shape)
+G_COLS = 64
 
 KERNEL = CudaKernel(
     "ssd_scan.cu", "ssd_scan",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def tile_smem_bytes(pt: int, L: int, N: int) -> int:
+    """Shared memory of a scan block (``smem_layout`` in the source): two
+    stages of the xdt tile (L x (pt + 4)) and of the chunk's record (4 L)
+    and the state (pt x (N + 8)), in f32."""
+    return 4 * (2 * L * (pt + 4) + 8 * L + pt * (N + 8))
+
+
+def ssd_plan(B: int, S: int, H: int, P: int, N: int, L: int) -> dict:
+    """The launch ``ssd_scan_cuda`` makes: the tile ``pt`` (columns of P a
+    block owns), ``blocks`` (P / pt x H x B, of THREADS threads each),
+    ``smem_bytes``, ``resident`` (blocks an SM holds: the least of what
+    the shared bytes, the threads and the registers allow), ``rounds``
+    (blocks the busiest SM runs), ``idle``, the share of the SMs' rounds
+    that the last one leaves empty, and ``cost``.
+
+    Every block walks all S / L chunks, so blocks take equal time and an
+    SM's time is its rounds times a block's work: ``pt`` columns of
+    products plus the G weights and C B^T reads, which every block forms
+    for itself and which cost about ``G_COLS`` columns' worth.  The plan
+    takes the tile of least ``cost``, and the widest of equals."""
+    opts = []
+    for pt in TILES:
+        if P % pt:
+            continue
+        smem = tile_smem_bytes(pt, L, N)
+        resident = min(SMEM_PER_SM // (smem + SMEM_RESERVED),
+                       THREADS_PER_SM // THREADS, REG_BLOCKS[pt])
+        blocks = (P // pt) * H * B
+        rounds = math.ceil(blocks / SM_COUNT)
+        opts.append(dict(pt=pt, blocks=blocks, smem_bytes=smem,
+                         resident=resident, rounds=rounds,
+                         idle=1.0 - blocks / (rounds * SM_COUNT),
+                         cost=rounds * (pt + G_COLS)))
+    if not opts:
+        raise ValueError(f"no tile of {TILES} divides P={P}")
+    return min(opts, key=lambda o: (o["cost"], -o["pt"]))
 
 
 def ssd_scan_plain(xdt: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
@@ -77,14 +134,8 @@ def ssd_scan_plain(xdt: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
     return (y_intra + y_inter).reshape(B_, S, H, P), h
 
 
-def ssd_scan_cuda(xdt: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
-                  Cm: torch.Tensor, *, chunk: int = 128
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper kernel on PyTorch's current stream; returns
-    (y, h_final).  The kernel walks chunks of ``chunk`` (<= 128) rows and
-    masks a ragged last chunk by index; the plain version's single S-row
-    chunk for a ragged S is the same sum in another order.  Raises on any
-    input it does not take; never falls back."""
+def _shapes(xdt, la, Bm, Cm, chunk):
+    """(B, S, H, P, N) of inputs the kernel takes; raises on any other."""
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan kernel needs CUDA tensors, got "
                          f"{xdt.device}")
@@ -114,9 +165,59 @@ def ssd_scan_cuda(xdt: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    return B, S, H, P, N
+
+
+def ssd_scan_cuda(xdt: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
+                  Cm: torch.Tensor, *, chunk: int = 128
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the Hopper kernel on PyTorch's current stream with the tile
+    ``ssd_plan`` picks; returns (y, h_final).  The kernel walks chunks of
+    ``chunk`` (<= 128) rows and masks a ragged last chunk by index; the
+    plain version's single S-row chunk for a ragged S is the same sum in
+    another order.  Raises on any input it does not take; never falls
+    back."""
+    B, S, H, P, N = _shapes(xdt, la, Bm, Cm, chunk)
+    return _launch(xdt, la, Bm, Cm, chunk,
+                   ssd_plan(B, S, H, P, N, chunk)["pt"])
+
+
+def ssd_scan_tiled(xdt: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, pt: int, *, chunk: int = 128
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_scan_cuda`` with the tile forced to ``pt`` columns of P a
+    block (16, 32 or 64, dividing P), for tests and the tile sweep."""
+    _, _, _, P, _ = _shapes(xdt, la, Bm, Cm, chunk)
+    if pt not in TILES or P % pt:
+        raise ValueError(f"tile must be one of {TILES} dividing P={P}, "
+                         f"got {pt}")
+    return _launch(xdt, la, Bm, Cm, chunk, pt)
+
+
+def _launch(xdt, la, Bm, Cm, chunk, pt):
+    """Both kernels of one call (C B^T and the cumsum records, then the
+    scan) on scratch from ``torch.empty``: one counted launch."""
+    B, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    nch = -(-S // chunk)
+    dev = xdt.device
     y = torch.empty_like(xdt)
-    h = torch.empty((B, H, P, N), dtype=torch.float32, device=xdt.device)
+    h = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    cb = torch.empty((B, nch, chunk, chunk), dtype=torch.float32, device=dev)
+    rec = torch.empty((B, H, nch, 4 * chunk), dtype=torch.float32,
+                      device=dev)
     KERNEL(xdt.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-           y.data_ptr(), h.data_ptr(), B, S, H, P, N, chunk,
-           stream_handle(xdt.device))
+           y.data_ptr(), h.data_ptr(), cb.data_ptr(), rec.data_ptr(), B, S,
+           H, P, N, chunk, pt, stream_handle(dev))
     return y, h
+
+
+def max_active_blocks(pt: int, chunk: int, N: int) -> int:
+    """Scan blocks of tile ``pt`` one SM of the card holds at once (the
+    CUDA occupancy calculation; chip_smoke.py prints it beside the
+    plan's ``resident``)."""
+    out = ctypes.c_int(0)
+    KERNEL.call("ssd_max_active_blocks",
+                [ctypes.c_int] * 3 + [ctypes.c_void_p], pt, chunk, N,
+                ctypes.byref(out))
+    return out.value

@@ -94,3 +94,69 @@ def gap_threshold(u, lo=0.75, hi=0.92):
 def tie_band(u, thr, tol):
     """Entries whose trigger decision a difference of ``tol`` could flip."""
     return np.abs(np.asarray(u, np.float64) - thr) <= tol
+
+
+# ------------------------------------------------- the SSD kernel's numerics
+def tf32(a):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as the kernel does on the bits: (bits + 0x1000) & ~0x1fff."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_matmul(a, b, passes=3):
+    """a @ b in f32 from TF32 operands: one product (hi hi) or three (lo hi
+    + hi lo, then hi hi), each operand split as hi = tf32(x), lo =
+    tf32(x - hi), as the kernel's tensor-core products."""
+    ah, bh = tf32(a), tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def ssd_emulate(xdt, la, Bm, Cm, chunk, pt, passes=3):
+    """The arithmetic of ``csrc/ssd_scan.cu`` in numpy: C B^T once per
+    (batch row, chunk) in f32; per chunk the f64 inclusive cumsum of la,
+    exp(cum_t), exp(cum_last - cum_t) and the score weights 2^x of f64
+    differences of log2(e)-scaled cumsums, each rounded once to f32; the
+    P columns in tiles of ``pt``, each on its own; every product in TF32
+    (``passes`` = 3 or 1) with f32 sums.  A ragged last chunk is padded
+    with zero rows.  Returns (y (B, S, H, P), h_final (B, H, P, N))."""
+    xdt, la, Bm, Cm = (np.asarray(t, np.float32) for t in (xdt, la, Bm, Cm))
+    B, S, H, P = xdt.shape
+    N, L = Bm.shape[-1], chunk
+    nch = -(-S // L)
+    pad = nch * L - S
+    if pad:
+        xdt, la, Bm, Cm = (np.concatenate(
+            [t, np.zeros((B, pad) + t.shape[2:], np.float32)], axis=1)
+            for t in (xdt, la, Bm, Cm))
+    y = np.zeros((B, nch * L, H, P), np.float32)
+    hT = np.zeros((B, H, N, P), np.float32)  # the state, transposed
+    tril = np.tril(np.ones((L, L), bool))
+    for c in range(nch):
+        rows = slice(c * L, (c + 1) * L)
+        Bc, Cc = Bm[:, rows], Cm[:, rows]                      # (B, L, N)
+        cb = (Cc @ np.swapaxes(Bc, 1, 2))[:, None]             # (B, 1, L, L)
+        cum = np.cumsum(np.moveaxis(la[:, rows], 1, 2).astype(np.float64),
+                        axis=-1)                               # (B, H, L)
+        ec = np.exp(cum.astype(np.float32))
+        dte = np.exp((cum[..., -1:] - cum).astype(np.float32))
+        cum2 = cum * np.log2(np.e)
+        d = np.where(tril, cum2[..., :, None] - cum2[..., None, :], -np.inf)
+        G = (cb * np.exp2(d.astype(np.float32))).astype(np.float32)
+        decay = ec[..., -1, None, None]
+        Bd = (Bc[:, None] * dte[..., None]).astype(np.float32)  # (B, H, L, N)
+        for p0 in range(0, P, pt):
+            cols = slice(p0, p0 + pt)
+            X = np.moveaxis(xdt[:, rows, :, cols], 1, 2)       # (B, H, L, pt)
+            yc = tf32_matmul(Cc[:, None], hT[..., cols], passes)
+            yc = (yc * ec[..., None]).astype(np.float32)
+            yc = yc + tf32_matmul(G, X, passes)
+            y[:, rows, :, cols] = np.moveaxis(yc, 1, 2)
+            hT[..., cols] = (decay * hT[..., cols]
+                             + tf32_matmul(np.swapaxes(Bd, -1, -2), X,
+                                           passes))
+    return y[:, :S], np.swapaxes(hT, -1, -2).copy()

@@ -22,9 +22,17 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_split)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.monitor_combine import (monitor_combine_cuda,
+from repro_torch.kernels.monitor_combine import (MAX_BLOCKS, ONE_BLOCK_MAX,
+                                                 combine_blocks,
+                                                 monitor_combine_blocks,
+                                                 monitor_combine_cuda,
                                                  monitor_combine_plain)
-from repro_torch.kernels.ssm_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.ssm_scan import (REG_BLOCKS, SMEM_PER_SM,
+                                          SMEM_RESERVED, THREADS,
+                                          THREADS_PER_SM, TILES,
+                                          max_active_blocks, ssd_scan_cuda,
+                                          ssd_scan_plain, ssd_scan_tiled,
+                                          tile_smem_bytes)
 from repro_torch.serving import MonitorSession, SessionConfig
 from repro_torch.training.loop import make_train_step, to_device, trainable
 from repro_torch.training.optimizer import AdamW
@@ -72,15 +80,40 @@ def test_decode_attention_kernel_vs_plain(cuda, dtype, B, Hq, Hkv, D, C,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 8, 1000, 2**20])
-def test_monitor_combine_kernel_vs_plain(cuda, n):
+@pytest.mark.parametrize("blocks", [None, 1, 7, MAX_BLOCKS])
+@pytest.mark.parametrize("n", [1, 8, 1000, ONE_BLOCK_MAX + 1, 2**20])
+def test_monitor_combine_kernel_vs_plain(cuda, n, blocks):
+    """As planned (None) and on forced block counts, twice in a row on one
+    stream (the second call must not see the first one's counts): fhat,
+    mask and counts bitwise equal to the plain version."""
     gen = torch.Generator(cuda).manual_seed(n)
     u, v, f = (torch.randn(n, generator=gen, device=cuda) for _ in range(3))
-    got = monitor_combine_cuda(u, v, f, s=0.2, threshold=0.1)
     want = monitor_combine_plain(u, v, f, s=0.2, threshold=0.1)
+    for _ in range(2):
+        got = (monitor_combine_cuda(u, v, f, s=0.2, threshold=0.1)
+               if blocks is None else
+               monitor_combine_blocks(u, v, f, blocks, s=0.2, threshold=0.1))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_monitor_combine_is_one_device_kernel_at_the_serve_batch(cuda):
+    """At the serving paths' N = 8 a call is one device kernel (no fill of
+    a scratch), as the profiler counts them."""
+    assert combine_blocks(8) == 1
+    u = torch.randn(8, device=cuda)
+    monitor_combine_cuda(u, u, u, s=0.2)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got[0], want[0], atol=1e-6, rtol=0)
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            monitor_combine_cuda(u, u, u, s=0.2)
+        torch.cuda.synchronize()
+    kinds = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kinds) == 5, kinds
 
 
 @pytest.mark.cuda
@@ -230,26 +263,46 @@ def _ssd_inputs(B, S, H, P, N, gen, device):
     return x, dt, A, Bm, Cm
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+SSD_CASES = [
     (2, 256, 4, 32, 16, 64),      # tests/test_kernels.py:72-76
     (1, 128, 2, 64, 64, 128),
     (2, 512, 8, 16, 32, 32),
     (2, 1, 4, 64, 64, 128),       # S = 1
     (2, 300, 6, 64, 64, 128),     # ragged S
     (1, 1024, 112, 64, 64, 128),  # zamba2 heads, state and chunk
-])
-def test_ssd_scan_kernel_vs_plain(cuda, B, S, H, P, N, chunk):
+    (1, 200, 3, 48, 48, 48),      # P, N and the chunk not powers of two
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk,pt", [
+    (*case, pt) for case in SSD_CASES
+    for pt in (None, *(t for t in TILES if case[3] % t == 0))])
+def test_ssd_scan_kernel_vs_plain(cuda, B, S, H, P, N, chunk, pt):
     """y and h_final within the reference's SSD tolerance (atol 5e-5,
-    rtol 5e-4)."""
+    rtol 5e-4), with the planned tile (None) and every tile that divides
+    P, twice in a row on one stream (no scratch carried between calls)."""
     gen = torch.Generator(cuda).manual_seed(S)
     x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, gen, cuda)
     xdt, la = x * dt[..., None], dt * A
-    y, h = ssd_scan_cuda(xdt, la, Bm, Cm, chunk=chunk)
     py, ph = ssd_scan_plain(xdt, la, Bm, Cm, chunk=chunk)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(y, py, atol=5e-5, rtol=5e-4)
-    torch.testing.assert_close(h, ph, atol=5e-5, rtol=5e-4)
+    for _ in range(2):
+        y, h = (ssd_scan_cuda(xdt, la, Bm, Cm, chunk=chunk) if pt is None
+                else ssd_scan_tiled(xdt, la, Bm, Cm, pt, chunk=chunk))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, py, atol=5e-5, rtol=5e-4)
+        torch.testing.assert_close(h, ph, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pt", TILES)
+def test_ssd_plan_residency_matches_the_card(cuda, pt):
+    """The plan's blocks an SM, from the shared bytes, threads and register
+    budget, are what the card's occupancy calculation gives at the zamba2
+    train shape."""
+    want = min(SMEM_PER_SM // (tile_smem_bytes(pt, 128, 64) + SMEM_RESERVED),
+               THREADS_PER_SM // THREADS, REG_BLOCKS[pt])
+    assert max_active_blocks(pt, 128, 64) == want
 
 
 @pytest.mark.cuda
