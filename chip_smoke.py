@@ -16,9 +16,10 @@ Phases, each printing its own lines:
               and the least time the card could take (its bound).  The
               tensor-op backwards of flash attention and of the SSD scan
               are checked against autograd through the plain versions.
-3. small   -- a SMOKE-size session, and one SMOKE train step per config
-              (granite-8b, paper SERVING, zamba2-7b), on the card against
-              the same on the CPU through the plain versions.
+3. small   -- a SMOKE-size session, one SMOKE train step per config
+              (granite-8b, paper SERVING, zamba2-7b) and a greedy
+              generate per config, on the card against the same on the
+              CPU through the plain versions.
 4. serve   -- MonitorSession over a full-width collaborative model
               (random weights from --seed) in sync and in scan mode, with
               a threshold calibrated to the paper's trigger rate: granite-8b
@@ -36,9 +37,25 @@ Phases, each printing its own lines:
               witnesses of the full-width gradient: for granite the same
               four steps at a tenth of the learning rate, and for both an
               f32 central-difference check per group of parameters.
+6. paper   -- the paper's own experiments at their published widths
+              (synthetic V = FC(1,16,32,64,100,1), financial
+              V = FC(29,64,128,256,1)): paper_forward on the card against
+              the CPU for every u_mode; 10 train_paper steps on the card
+              against the CPU; the Prop-2-calibrated synthetic run (raises
+              unless FN < 0.005 and L2 < 0.35); the Fig-4 financial pair
+              (truncate-16 and FC(29,10,1)) with FN, L2, on-device size
+              and comms reduction; µs per train step, peak memory.
+7. generate -- ServeEngine.generate on the server tower: granite-8b (36
+              layers, B=8, a 64-token prompt, 64 new tokens, max_len 512)
+              and zamba2-7b (81 layers, 16 + 16 tokens); raises unless
+              decode_attention launches once per attention layer per
+              position, two greedy runs give the same tokens bitwise and
+              every logit is finite; prefill and generate tokens/s, ms per
+              step, peak memory.
 
---profile adds torch.profiler breakdowns of one sync and one scan run and
-of one train step per model.  Then one JSON line of the kernels, the
+--profile adds torch.profiler breakdowns of one sync and one scan run, of
+one train step per model, of a train_paper step and of a generate step
+per model.  Then one JSON line of the kernels, the
 card's name and power limit, and a last line {"ok": true, "device":
 {...}}.  Any failed check raises, so the script exits non-zero and
 prints no result; it also does so without a GPU or outside a checkout
@@ -712,11 +729,62 @@ def phase_ssd(torch, dev, seed: int, shape):
 def phase_small(torch, dev, seed: int):
     """A SMOKE-size bf16 session per model on the card (kernels) against
     the same weights and tokens on the CPU (plain versions)."""
-    from repro_torch.configs import granite_8b, zamba2_7b
+    from repro_torch.configs import granite_8b, paper_synthetic, zamba2_7b
     small_session(torch, dev, seed, granite_8b.SMOKE.replace(dtype="bfloat16"),
                   flips=False)
     small_session(torch, dev, seed, zamba2_7b.SMOKE.replace(dtype="bfloat16"),
                   flips=True)
+    for cfg in (granite_8b.SMOKE, paper_synthetic.SERVING, zamba2_7b.SMOKE):
+        small_generate(torch, dev, seed, cfg.replace(dtype="bfloat16"))
+    small_generate(torch, dev, seed, zamba2_7b.SMOKE)  # f32
+
+
+def small_generate(torch, dev, seed: int, cfg):
+    """Greedy generate on the card (decode kernel) against the CPU (plain
+    version) from the same weights.  Tokens equal, row by row up to a
+    row's first differing token, which is allowed only where the CPU's
+    top-2 logit margin is inside the tie band (twice the dtype's
+    end-to-end tolerance); a row is not compared past it.  The logits are
+    held to that tolerance too, except for the hybrid in bf16: its
+    recurrent state carries one-ulp bf16 differences from position to
+    position (up to 3.3e-2 over 16 positions on the H100), so its logits
+    are held in the f32 run, and its bf16 run is held to the token rule."""
+    from repro_torch.models import api as model_api
+    from repro_torch.serving.engine import ServeEngine
+    cpu, tol = torch.device("cpu"), TOL_E2E[cfg.dtype]
+    hold_logits = not (cfg.family == "hybrid" and cfg.dtype == "bfloat16")
+    model_cpu = model_api.init_model(cfg, torch.Generator(cpu).manual_seed(seed),
+                                     cpu)
+    model_dev = copy.deepcopy(model_cpu).to(dev)
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 8))
+    runs = []
+    for model, where in ((model_dev, dev), (model_cpu, cpu)):
+        toks, logits = ServeEngine(model, cfg, 4, 32, where).generate(
+            torch.as_tensor(prompt), 8, return_logits=True)
+        runs.append((toks.cpu().numpy(), logits.float().cpu().numpy()))
+    (ta, la), (tb, lb) = runs
+    top2 = np.sort(lb, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    band = 2 * tol * (1 + np.abs(top2[..., 1]))
+    ties, worst = 0, 0.0
+    for b in range(ta.shape[0]):
+        for j in range(ta.shape[1]):
+            d = np.abs(la[b, j] - lb[b, j])
+            worst = max(worst, float(d.max()))
+            check(not hold_logits or bool((d <= tol + tol * np.abs(lb[b, j])
+                                           ).all()),
+                  f"{cfg.name} {cfg.dtype} generate logits row {b} step {j}")
+            if ta[b, j] != tb[b, j]:
+                check(margin[b, j] <= band[b, j],
+                      f"{cfg.name} {cfg.dtype} generate token row {b} step "
+                      f"{j} outside the tie band (margin {margin[b, j]})")
+                ties += 1
+                break
+    print(f"[small] {cfg.name} SMOKE {cfg.dtype} greedy generate (8 + 8 "
+          f"tokens x 4), card vs CPU: max |dlogit| {worst:.3e} "
+          f"({'held to' if hold_logits else 'not held; token rule at'} tol "
+          f"{tol}); tokens equal outside the tie band, {ties} of {ta.size} "
+          f"positions in it")
 
 
 def small_session(torch, dev, seed: int, cfg, flips: bool):
@@ -1230,6 +1298,250 @@ def profile(torch, session, conf, toks, label: str):
                   f"{e.key[:80]}")
 
 
+def profile_calls(torch, fn, calls: int, label: str) -> None:
+    """Launches, device time and wall time per call of ``fn`` over
+    ``calls`` calls after one warm call, and the device time by kernel
+    kind: what a host-bound step spends its time on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    kern = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(_dev_us(e) for e in kern) / 1e3 / calls
+    n = sum(e.count for e in kern) / calls
+    check(busy > 0, f"the profiler saw device time in {label}")
+    groups = {}
+    for e in kern:
+        kind = ("decode_attention kernel" if "decode_attention" in e.key
+                else _train_kind(e.key))
+        groups[kind] = groups.get(kind, 0.0) + _dev_us(e) / 1e3 / calls
+    print(f"[profile] {label}: {n:.0f} launches, {busy:.3f} ms of kernels "
+          f"and {wall:.3f} ms of wall time a call under the profiler "
+          f"(device busy {busy / wall:.1%}); "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in
+                      sorted(groups.items(), key=lambda x: -x[1])))
+
+
+# ---------------------------------------------------------------- phase 6
+# the Prop-2 run of tests/test_system.py::TestPaperPipelineEndToEnd: n of
+# N_MODES cosines, t sampled, s = 2t, its steps, step size and hinge
+PROP2_N, PROP2_MODES, PROP2_STEPS, PROP2_LR, PROP2_HINGE = 8, 24, 1500, 5e-3, 0.1
+PAPER_CHECK_STEPS, PAPER_CHECK_LR = 10, 2e-3
+
+
+def phase_paper(torch, dev, seed: int, with_profile: bool = False) -> None:
+    """The paper-scale decomposition at the published widths (module
+    docstring, phase 6).  No CUDA kernel of the port runs here: the nets
+    are a few small matmuls a step, launched eagerly."""
+    from repro_torch import bridge
+    from repro_torch.bench.paper import FIG4_MONITORS, FIG4_STEPS, fig4_run
+    from repro_torch.configs import paper_financial, paper_synthetic
+    from repro_torch.core import safety, theory
+    from repro_torch.core.decomposition import (U_MODES,
+                                                init_paper_decomposition,
+                                                paper_forward)
+    from repro_torch.data.synthetic import (financial_series, financial_xy,
+                                            paper_synthetic as syn_data,
+                                            synthetic_residual)
+    from repro_torch.training.loop import (make_paper_step, paper_batches,
+                                           train_paper, trainable)
+    from repro_torch.training.optimizer import AdamW
+    cpu, tol = torch.device("cpu"), TOL["float32"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    syn, fin = paper_synthetic.FULL, paper_financial.FULL
+    data = {syn.name: syn_data(seed, 4096, rho=syn.rho, n_modes=PROP2_MODES),
+            fin.name: financial_xy(financial_series(seed))}
+
+    def pair(cfg, u_mode):
+        kw = {"cosine": {"n_modes": 48},
+              "independent": {"u_dims": (cfg.in_dim, 10, 1)}}.get(u_mode, {})
+        m_cpu = init_paper_decomposition(
+            cfg, torch.Generator(cpu).manual_seed(seed), u_mode=u_mode,
+            device=cpu, **kw)
+        return m_cpu, bridge.paper_from_numpy(bridge.paper_to_numpy(m_cpu),
+                                              cfg, u_mode, dev)
+
+    worst = 0.0
+    for cfg in (syn, fin):
+        x = torch.as_tensor(data[cfg.name][0])
+        for u_mode in U_MODES:
+            m_cpu, m_dev = pair(cfg, u_mode)
+            with torch.no_grad():
+                a = paper_forward(m_dev, x.to(dev), cfg, u_mode=u_mode)
+                b = paper_forward(m_cpu, x, cfg, u_mode=u_mode)
+            for k in ("u", "v", "corr", "fhat", "t"):
+                worst = max(worst, max_err(a[k].cpu(), b[k]))
+                check(within(a[k].cpu(), b[k], tol),
+                      f"paper_forward {cfg.name} {u_mode} {k}")
+    print(f"[paper] paper_forward card vs CPU, 3 u_modes x {syn.name} and "
+          f"{fin.name} FULL: max |diff| {worst:.3e} (tol {tol})")
+
+    lr = PAPER_CHECK_LR
+    for cfg, u_mode, kw in (
+            (syn, "cosine", dict(monitor_n=PROP2_N, s=0.5, freeze_t=True,
+                                 safety_weight=PROP2_HINGE)),
+            (fin, "truncated", dict(safety_weight=20.0)),
+            (fin, "independent", dict(safety_weight=20.0))):
+        x, f = data[cfg.name]
+        idx = paper_batches(x.shape[0], steps=PAPER_CHECK_STEPS, batch=256,
+                            seed=seed)
+        trees = []
+        for where, model in zip((dev, cpu), reversed(pair(cfg, u_mode))):
+            opt = AdamW(lr=lr, clip_norm=0.0)
+            state = opt.init(trainable(model))
+            step = make_paper_step(cfg, opt, u_mode=u_mode, **kw)
+            xd, fd = torch.as_tensor(x, device=where), torch.as_tensor(
+                f, device=where)
+            ix = torch.as_tensor(idx, device=where)
+            for i in range(PAPER_CHECK_STEPS):
+                step(model, state, xd[ix[i]], fd[ix[i]])
+            trees.append(bridge.paper_to_numpy(model))
+        d = max(float(np.abs(a - b).max())
+                for a, b in zip(_leaves(trees[0]), _leaves(trees[1])))
+        print(f"[paper] {PAPER_CHECK_STEPS} train_paper steps {cfg.name} "
+              f"{u_mode}, card vs CPU: parameters max |diff| {d / lr:.4f} lr"
+              f" (bound 0.1 lr)")
+        check(d <= 0.1 * lr, f"paper steps {cfg.name} {u_mode}")
+
+    x, f = data[syn.name]
+    t = theory.t_of_n_sampled(lambda z: synthetic_residual(
+        z, PROP2_N, rho=syn.rho, n_modes=PROP2_MODES), x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, res = train_paper(torch.Generator(dev).manual_seed(seed), syn, x, f,
+                         u_mode="cosine", n_modes=PROP2_MODES,
+                         monitor_n=PROP2_N, s=theory.s_rule(t), freeze_t=t,
+                         steps=PROP2_STEPS, lr=PROP2_LR,
+                         safety_weight=PROP2_HINGE, device=dev)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) * 1e6 / PROP2_STEPS
+    out, fd = res["out"], torch.as_tensor(f, device=dev)
+    fn = float(safety.fn_rate(fd, out["u"], eps=0.05))
+    l2 = float(safety.approx_error(fd, out["fhat"], 2.0))
+    viol, vmax = (float(v) for v in safety.safety_violation(fd, out["u"]))
+    print(f"[paper] {syn.name} FULL Prop-2 run (n={PROP2_N} of {PROP2_MODES} "
+          f"cosines, t={t:.4f}, s=2t, {PROP2_STEPS} steps, lr {PROP2_LR}, "
+          f"hinge {PROP2_HINGE}): FN {fn:.5f} (< 0.005), L2 {l2:.5f} "
+          f"(< 0.35), u < f on {viol:.4f} of inputs by at most {vmax:.4f}; "
+          f"{us:.1f} us/step")
+    check(fn < 0.005, f"Prop-2 FN {fn}")
+    check(l2 < 0.35, f"Prop-2 L2 {l2}")
+    check(bool((out["fhat"] <= out["u"]).all()), "Prop-2 fhat <= u")
+
+    if with_profile:
+        model = init_paper_decomposition(
+            syn, torch.Generator(dev).manual_seed(seed), u_mode="cosine",
+            n_modes=PROP2_MODES, device=dev)
+        opt = AdamW(lr=PROP2_LR, clip_norm=0.0)
+        state = opt.init(trainable(model))
+        step = make_paper_step(syn, opt, u_mode="cosine", monitor_n=PROP2_N,
+                               s=theory.s_rule(t), freeze_t=True,
+                               safety_weight=PROP2_HINGE)
+        xd, fd = (torch.as_tensor(a, device=dev) for a in (x, f))
+        ix = torch.as_tensor(paper_batches(x.shape[0], steps=1, batch=256,
+                                           seed=seed)[0], device=dev)
+        profile_calls(torch, lambda: step(model, state, xd[ix], fd[ix]), 20,
+                      f"{syn.name} FULL train_paper step (Prop-2 run)")
+
+    for mode, kw, udesc in FIG4_MONITORS:
+        rep, ratio, meter, us, out = fig4_run(dev, mode, kw, seed=seed)
+        check(bool(torch.isfinite(out["u"]).all()
+                   and (out["fhat"] <= out["u"]).all()),
+              f"Fig-4 {udesc} fhat <= u")
+        print(f"[paper] Fig 4 {udesc} ({fin.name} FULL, {FIG4_STEPS} steps, "
+              f"lr 2e-3, hinge 20): FN {float(rep['fn']):.5f}, L2 "
+              f"{float(rep['l2']):.5f}, FP {float(rep['fp']):.5f}, corrected"
+              f" FP {float(rep['corrected_fp']):.5f}; on-device size V/U "
+              f"{ratio:.1f}x; comms reduction {meter.reduction:.1f}x at "
+              f"trigger rate {meter.trigger_rate:.4f}; {us:.1f} us/step")
+    print(f"[paper] fhat <= u at every output; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+
+
+# ---------------------------------------------------------------- phase 7
+GEN_BATCH, GEN_MAX_LEN = 8, 512
+GEN_TOKENS = {"dense": (64, 64), "hybrid": (16, 16)}  # (prompt, new)
+
+
+def attention_layers(cfg) -> int:
+    """decode_attention launches per decode step: one per attention layer
+    (a hybrid runs its shared block once per super-block)."""
+    from repro_torch.models import hybrid
+    return hybrid._layout(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
+
+
+def phase_generate(torch, dev, args, cfg) -> dict:
+    """ServeEngine.generate on ``cfg``'s server tower at full width and
+    depth; returns the kernels' launch counts of one generate."""
+    from repro_torch import kernels
+    from repro_torch.models import api as model_api
+    from repro_torch.serving.engine import ServeEngine
+    B, ML = GEN_BATCH, GEN_MAX_LEN
+    S0, n_new = GEN_TOKENS[cfg.family]
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = model_api.init_model(cfg, torch.Generator(dev).manual_seed(
+        args.seed), dev)
+    prompt = torch.as_tensor(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (B, S0)), device=dev)
+
+    class Timed(ServeEngine):
+        """Times its prefill inside generate, with one sync at its end."""
+
+        def prefill(self, tokens):
+            t0 = time.perf_counter()
+            out = super().prefill(tokens)
+            torch.cuda.synchronize()
+            self.prefill_s = time.perf_counter() - t0
+            return out
+
+    def engine():
+        return Timed(model, cfg, B, ML, dev, seed=args.seed)
+
+    engine().generate(prompt[:, :2], 2)  # warm-up: first launches
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()  # count one generate's launches only
+    eng = engine()
+    t0 = time.perf_counter()
+    toks, logits = eng.generate(prompt, n_new, return_logits=True)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    again = engine().generate(prompt, n_new)
+    per_pos = attention_layers(cfg)
+    want = per_pos * (S0 + n_new)
+    t_pre = eng.prefill_s
+    t_dec = t_gen - t_pre
+    print(f"[generate] {cfg.name}: {cfg.n_layers} layers, B={B}, prompt "
+          f"{S0}, {n_new} new tokens, max_len {ML}: prefill "
+          f"{B * S0 / t_pre:.1f} tokens/s ({t_pre / S0 * 1e3:.2f} ms a "
+          f"position); generate {B * n_new / t_dec:.1f} tokens/s, "
+          f"{t_dec / n_new * 1e3:.2f} ms/step (after the prefill; whole "
+          f"generate {t_gen:.3f} s); launches {counts}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check(counts["decode_attention"] == want,
+          f"decode_attention launches {counts['decode_attention']} == "
+          f"{per_pos} attention layers x ({S0} + {n_new})")
+    check(toks.shape == (B, n_new), "generated shape")
+    check(torch.equal(toks, again), "two greedy runs give the same tokens")
+    check(bool(torch.isfinite(logits).all()), "every logit finite")
+    if args.profile:
+        tok = eng.sample(logits[:, -1])
+        profile_calls(torch, lambda: eng.sample(eng.decode(tok)[0]), 4,
+                      f"{cfg.name} generate step (decode + argmax)")
+    print(f"[generate] {cfg.name}: decode_attention {want} launches = "
+          f"{per_pos} x ({S0} + {n_new}); two greedy runs bitwise equal; "
+          f"all {logits.numel()} logits finite; first "
+          f"row {toks[0, :8].tolist()}")
+    del model
+    return counts
+
+
 def _dev_us(event) -> float:
     """Self device time of a profiler row (renamed across PyTorch versions)."""
     return getattr(event, "self_device_time_total",
@@ -1306,6 +1618,12 @@ def main(argv=None) -> int:
         run = phase_train(torch, dev, args, cfg, n_full, lr_witness)
         for name in TRAIN_KERNELS:
             counts[name] += run[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_paper(torch, dev, args.seed, args.profile)
+    for cfg in (full, zfull):
+        counts["decode_attention"] += phase_generate(
+            torch, dev, args, cfg)["decode_attention"]
         gc.collect()
         torch.cuda.empty_cache()
     for name, rec in records.items():

@@ -12,6 +12,12 @@ storage dtype.  ``collab_to_numpy`` goes the other way: the port's
 parameters (or their f32 optimizer masters, or their gradients) as a tree
 of the reference's layout, for leaf-by-leaf comparison.  It imports no
 JAX: the caller does the ``np.asarray``.
+
+The paper-scale ``init_paper_decomposition`` tree (``v/l{i}/{w,b}``,
+``a``, ``raw_t``, ``u_net/...``) crosses with ``paper_from_numpy`` /
+``paper_to_numpy``; ``training/checkpoint.py`` writes and reads both
+layouts, optimizer moments included (``moments_to_numpy`` /
+``load_moments``).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.decomposition import CollabLM
+from repro_torch.core.decomposition import CollabLM, PaperDecomposition
 
 
 def _as_tensor(arr) -> torch.Tensor:
@@ -90,6 +96,35 @@ def collab_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
     return model
 
 
+def load_numpy(model: nn.Module, tree: Mapping[str, Any]) -> None:
+    """Copy a reference tree into an existing module of the same layout,
+    in place, each leaf in its parameter's storage dtype."""
+    _load(model, tree, "")
+
+
+def paper_from_numpy(tree: Mapping[str, Any], cfg, u_mode: str,
+                     device) -> PaperDecomposition:
+    """The reference's ``init_paper_decomposition`` tree (``cfg``: its
+    ``PaperMLPConfig``) -> ``PaperDecomposition`` on ``device``; the cosine
+    basis width and the independent net's widths are read off the tree."""
+    n_modes, u_dims = 0, None
+    if u_mode == "cosine":
+        n_modes = int(np.asarray(tree["a"]).shape[0])
+    if u_mode == "independent":
+        ws = [np.asarray(tree["u_net"][f"l{i}"]["w"])
+              for i in range(len(tree["u_net"]))]
+        u_dims = tuple(w.shape[0] for w in ws) + (ws[-1].shape[1],)
+    model = PaperDecomposition(cfg, u_mode=u_mode, u_dims=u_dims,
+                               n_modes=n_modes, device=device)
+    _load(model, tree, "")
+    return model
+
+
+def paper_to_numpy(model: PaperDecomposition) -> Dict[str, Any]:
+    """``PaperDecomposition`` -> the reference's tree of f32 numpy leaves."""
+    return _dump(model, lambda p: p.detach().float().cpu().numpy())
+
+
 def _masters(model: CollabLM, state) -> Dict[int, torch.Tensor]:
     """id(parameter) -> its f32 master in an optimizer ``state`` made by
     ``opt.init(list(model.parameters()))``."""
@@ -151,3 +186,39 @@ def collab_to_numpy(model: CollabLM, state=None, *,
         return t.detach().float().cpu().numpy()
 
     return _dump(model, leaf)
+
+
+def _by_param(model: nn.Module, values) -> Dict[int, torch.Tensor]:
+    """id(parameter) -> its entry of a list aligned with
+    ``model.parameters()`` (an optimizer state's moments)."""
+    return {id(p): t for p, t in zip(model.parameters(), values)}
+
+
+def moments_to_numpy(model: nn.Module, state) -> Dict[str, Any]:
+    """An optimizer ``state`` of ``model`` as the reference's ``AdamState``
+    tree: ``{"count", "m", "v"}`` with ``m``/``v`` in the parameters'
+    layout (``v`` is None for SGD, as in the reference)."""
+    def tree(values):
+        if values is None:
+            return None
+        by = _by_param(model, values)
+        return _dump(model, lambda p: by[id(p)].detach().float().cpu().numpy())
+
+    return {"count": np.asarray(state.count, np.int32), "m": tree(state.m),
+            "v": tree(state.v)}
+
+
+def load_moments(tree: Mapping[str, Any], model: nn.Module, state) -> None:
+    """Copy an ``AdamState`` tree (``moments_to_numpy``'s layout) into the
+    optimizer ``state`` of ``model``, in place."""
+    state.count = int(np.asarray(tree["count"]))
+    for key in ("m", "v"):
+        values = getattr(state, key)
+        if values is None:
+            continue
+        by = _by_param(model, values)
+
+        def put(p, src, by=by):
+            by[id(p)].copy_(src.float())
+
+        _load(model, tree[key], key, put)

@@ -1,10 +1,21 @@
-"""The paper's decomposition ``f_hat = u - s * sigma(v)`` at LM scale
-(``core/decomposition.py``): the server backbone with a scalar corrector
-head, and a small edge tower with the truncated-basis monitor head
-(paper Eq. 8)."""
+"""The paper's decomposition ``f_hat = u - s * sigma(v)``
+(``core/decomposition.py``), in its two forms:
+
+1. Paper scale (§4): V is a small FC net (``MLP``) and the monitor u is
+   either the truncated basis of V's penultimate features (``truncated``,
+   Eq. 8), the explicit cosine basis (``cosine``, §4.1) or a separate
+   small FC net (``independent``, the appendix).  ``PaperDecomposition``
+   holds the parameters, ``paper_forward`` computes.
+2. LM scale: the server backbone with a scalar corrector head, and a
+   small edge tower with the truncated-basis monitor head (``CollabLM``).
+
+Safety is structural in both: the corrector -s*sigma(v) is negative, so
+fhat <= u always.
+"""
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +36,141 @@ def sigma(x: torch.Tensor, kind: str = "sigmoid") -> torch.Tensor:
     raise ValueError(kind)
 
 
+def sigma_inv(y: torch.Tensor, kind: str = "sigmoid") -> torch.Tensor:
+    y = torch.clamp(y, 1e-7, 1 - 1e-7)
+    if kind == "sigmoid":
+        return torch.log(y) - torch.log1p(-y)
+    if kind == "tanh01":
+        return torch.atanh(2.0 * y - 1.0)
+    raise ValueError(kind)
+
+
+def _inv_softplus(y: float) -> float:
+    return float(np.log(np.expm1(y))) if y < 20 else float(y)
+
+
+# ---------------------------------------------------------------------------
+# Paper scale
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """The reference's ``init_mlp`` tree: layers ``l0 .. l{k}``, each a
+    ``Linear`` with ``w`` (d_in, d_out) and ``b``; tanh between them."""
+
+    def __init__(self, dims: Sequence[int], device=None):
+        super().__init__()
+        self.dims = tuple(dims)
+        for i in range(len(dims) - 1):
+            self.add_module(f"l{i}", Linear(dims[i], dims[i + 1], bias=True,
+                                            device=device))
+
+    def layers(self):
+        return [getattr(self, f"l{i}") for i in range(len(self.dims) - 1)]
+
+    def init_(self, gen: torch.Generator):
+        """normal(0, 1/sqrt(d_in)) weights, zero biases."""
+        for layer in self.layers():
+            layer.init_(gen, 1.0 / math.sqrt(layer.w.shape[0]))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return mlp_forward(self, x)
+
+
+def mlp_forward(p: MLP, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scalar output (B,), penultimate features (B, n_basis))."""
+    layers = p.layers()
+    h = x
+    for layer in layers[:-1]:
+        h = torch.tanh(linear(layer, h))
+    return linear(layers[-1], h)[..., 0], h
+
+
+def cosine_basis(x: torch.Tensor, n_modes: int) -> torch.Tensor:
+    """phi_i(x) = cos(i x), i = 1..n_modes; x: (B,) or (B, d) (its first
+    column) -> (B, n_modes)."""
+    xs = x if x.dim() == 1 else x[..., 0]
+    i = torch.arange(1, n_modes + 1, dtype=torch.float32, device=x.device)
+    return torch.cos(xs[:, None] * i[None, :])
+
+
+U_MODES = ("truncated", "cosine", "independent")
+
+
+class PaperDecomposition(nn.Module):
+    """``init_paper_decomposition``'s tree: ``v`` (the server net
+    FC(in_dim, *hidden, 1)) and either ``a`` (the monitor's basis
+    coefficients: V's ``n_basis`` penultimate features, or ``n_modes``
+    cosines) or ``u_net`` (an independent FC net, ``u_dims``), with
+    ``raw_t`` (t = softplus(raw_t)).  f32 throughout."""
+
+    def __init__(self, cfg, *, u_mode: str = "truncated", u_dims=None,
+                 n_modes: int = 0, device=None):
+        super().__init__()
+        if u_mode not in U_MODES:
+            raise ValueError(f"u_mode {u_mode!r} not in {U_MODES}")
+        device = resolve_device(device)
+        self.u_mode = u_mode
+        self.v = MLP((cfg.in_dim,) + tuple(cfg.hidden) + (1,), device)
+        if u_mode == "independent":
+            self.u_net = MLP(tuple(u_dims or (cfg.in_dim, 10, 1)), device)
+        else:
+            n_basis = n_modes if u_mode == "cosine" else cfg.n_basis
+            self.a = param((n_basis,), torch.float32, device)
+        self.raw_t = param((), torch.float32, device)
+
+    def init_(self, gen: torch.Generator, cfg):
+        self.v.init_(gen)
+        if self.u_mode == "independent":
+            self.u_net.init_(gen)
+        else:
+            normal_(self.a, gen, 0.1)
+        self.raw_t.fill_(_inv_softplus(cfg.t_init))
+
+
+def init_paper_decomposition(cfg, gen: torch.Generator, *,
+                             u_mode: str = "truncated", u_dims=None,
+                             n_modes: int = 0,
+                             device=None) -> PaperDecomposition:
+    """cfg: ``PaperMLPConfig``.  Weights drawn from ``gen`` (a generator
+    on ``device``; ``None``: the card) with the reference's distributions:
+    std 1/sqrt(d_in), zero biases, ``a ~ 0.1 N(0, 1)``,
+    ``raw_t = inv_softplus(t_init)``.  To compare with the reference, carry
+    its weights across with ``bridge.paper_from_numpy``."""
+    model = PaperDecomposition(cfg, u_mode=u_mode, u_dims=u_dims,
+                               n_modes=n_modes, device=device)
+    model.init_(gen, cfg)
+    return model
+
+
+def paper_forward(p: PaperDecomposition, x: torch.Tensor, cfg, *,
+                  u_mode: str = "truncated", s: Optional[float] = None,
+                  monitor_n: Optional[int] = None,
+                  sigma_kind: str = "sigmoid") -> Dict[str, torch.Tensor]:
+    """The collaborative forward at paper scale: u, v, corr = s sigma(v),
+    fhat = u - corr and t.  Only the first ``monitor_n`` (default
+    ``cfg.monitor_n``) basis functions reach the device."""
+    s = cfg.s if s is None else s
+    n = cfg.monitor_n if monitor_n is None else monitor_n
+    v_out, phi = mlp_forward(p.v, x)
+    t = softplus(p.raw_t)
+    if u_mode == "independent":
+        u = mlp_forward(p.u_net, x)[0] + t
+    else:
+        k = p.a.shape[0]
+        basis = cosine_basis(x, k) if u_mode == "cosine" else phi
+        mask = (torch.arange(k, device=x.device) < n).float()
+        u = basis @ (p.a * mask) + t
+    corr = s * sigma(v_out, sigma_kind)
+    return {"u": u, "v": v_out, "corr": corr, "fhat": u - corr, "t": t}
+
+
+# ---------------------------------------------------------------------------
+# LM scale
+# ---------------------------------------------------------------------------
+
+
 def edge_arch(cfg: ArchConfig) -> ArchConfig:
     """The edge tower's config, derived from ``cfg.monitor``: a small dense
     decoder with a 1k-token ring cache (the edge memory budget), for a
@@ -43,10 +189,6 @@ def edge_arch(cfg: ArchConfig) -> ArchConfig:
         dtype=cfg.dtype, param_dtype=cfg.param_dtype, remat=False,
         monitor=m,
     )
-
-
-def _inv_softplus(y: float) -> float:
-    return float(np.log(np.expm1(y))) if y < 20 else float(y)
 
 
 class UHead(nn.Module):

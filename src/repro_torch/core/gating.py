@@ -1,6 +1,9 @@
 """Trigger-gated correction and communication accounting
-(``core/gating.py``): ``compact_correction`` and the per-stream part of
-``CommsMeter`` that the sync and scan serving paths use."""
+(``core/gating.py``): ``trigger_mask`` and ``masked_correction`` (dense
+compute, the trigger applied as a mask, as the paper-scale experiments
+use it), ``compact_correction`` (the serving scan path's static-capacity
+gather), and ``CommsMeter``, per stream for the sync and scan serving
+paths and in aggregate for the paper's Fig-4 accounting."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -8,6 +11,20 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def trigger_mask(u: torch.Tensor, threshold: float,
+                 margin: float) -> torch.Tensor:
+    """1.0 where the device must consult the server (u near or above
+    gamma), else 0.0."""
+    return (u > threshold - margin).float()
+
+
+def masked_correction(u: torch.Tensor, corr: torch.Tensor, threshold: float,
+                      margin: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fhat = u - corr where triggered, u elsewhere.  Returns (fhat, mask)."""
+    mask = trigger_mask(u, threshold, margin)
+    return u - mask * corr, mask
 
 
 def compact_correction(u: torch.Tensor, xs: torch.Tensor,
@@ -69,6 +86,14 @@ class CommsMeter:
         self._ring_seen = np.zeros((self.n_streams, self.rate_window), bool)
         self._ring_pos = 0
         self._per_stream_used = False
+
+    def update(self, n_triggered: int, n_total: int) -> None:
+        """Aggregate accounting: ``n_triggered`` of ``n_total`` inputs
+        consulted the server, each shipping one request.  It feeds neither
+        the per-stream counts nor the windowed rate."""
+        self.total_steps += int(n_total)
+        self.triggered += int(n_triggered)
+        self.tokens_shipped += int(n_triggered)
 
     def update_per_stream(self, sent, seen, events=None) -> None:
         """sent/seen: (n_streams,) tokens shipped/observed by this event;

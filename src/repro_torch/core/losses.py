@@ -1,12 +1,27 @@
-"""Training objective of the collaborative LM (``core/losses.py``): the
-server tower's next-token cross entropy, the paper's approximation term
-MSE(fhat, f) and the learned safety hinge on u < f."""
+"""Training objectives (``core/losses.py``).
+
+Paper scale: MSE on fhat (the paper's §4 training), with an optional
+safety hinge on f - u for the regime where t is learned rather than sized
+by Prop 2.  LM scale: the server tower's next-token cross entropy, the
+paper's approximation term MSE(fhat, f) and the learned safety hinge on
+u < f."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+
+def paper_loss(out: Dict[str, torch.Tensor], f: torch.Tensor, *,
+               safety_weight: float = 0.0,
+               margin: float = 0.0) -> torch.Tensor:
+    """MSE(fhat, f) + safety_weight * E[relu(f - u + margin)^2]."""
+    loss = torch.mean((out["fhat"] - f) ** 2)
+    if safety_weight:
+        viol = F.relu(f - out["u"] + margin)
+        loss = loss + safety_weight * torch.mean(viol ** 2)
+    return loss
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,12 @@ select; here the (B,) position vector goes straight through the model and
 the decode attention kernel, and the cache write of an inactive row keeps
 the old slot contents.  Every row is decoded; the hidden state of an
 inactive row is garbage and callers gate on ``active``.
+
+``prefill`` / ``sample`` / ``generate`` are the reference's text
+generation: the prompt is fed by walking ``decode_step`` over it (as the
+reference's scan does, so no prefill attention kernel is needed), and
+each new token is the argmax at temperature 0 or a categorical draw from
+the engine's own seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -51,15 +57,18 @@ def step_at(params, cfg: ArchConfig, cache, tokens_t: torch.Tensor,
 
 
 class ServeEngine:
-    """Parameters + cache for one batched decode session on ``device``."""
+    """Parameters + cache for one batched decode session on ``device``;
+    ``seed`` seeds the generator that ``sample`` draws from above
+    temperature 0."""
 
     def __init__(self, params, cfg: ArchConfig, batch: int, max_len: int,
-                 device):
+                 device, seed: int = 0):
         self.params, self.cfg = params, cfg
         self.batch, self.max_len = batch, max_len
         self.device = resolve_device(device)
         self.cache = model_api.init_cache(cfg, batch, max_len, self.device)
         self.pos = 0
+        self.gen = torch.Generator(self.device).manual_seed(seed)
 
     def decode(self, tokens_t: torch.Tensor
                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
@@ -69,6 +78,47 @@ class ServeEngine:
                                     tokens_t, self.pos)
         self.pos += 1
         return out
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Feed the prompt ``tokens`` (B, S0) one decode step a position
+        from ``self.pos`` on, advancing it; returns the last position's
+        logits (B, V)."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        logits = None
+        for t in range(tokens.shape[1]):
+            logits, _ = self.decode(tokens[:, t])
+        return logits
+
+    def sample(self, logits: torch.Tensor,
+               temperature: float = 0.0) -> torch.Tensor:
+        """(B, V) logits -> (B,) int32 tokens: the argmax at temperature
+        <= 0, else a categorical draw from softmax(logits / temperature)
+        by the Gumbel-max rule, with noise from ``self.gen``."""
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        e = torch.empty_like(logits, dtype=torch.float32).exponential_(
+            generator=self.gen)
+        return torch.argmax(logits.float() / temperature - torch.log(e),
+                            dim=-1).to(torch.int32)
+
+    @torch.no_grad()
+    def generate(self, prompt: torch.Tensor, n_new: int,
+                 temperature: float = 0.0, *, return_logits: bool = False):
+        """prompt (B, S0) -> generated tokens (B, n_new): the prefill, then
+        exactly ``n_new`` decode steps (the last one's logits go unused,
+        as in the reference).  With ``return_logits`` also the (B, n_new,
+        V) logits each token was drawn from."""
+        logits = self.prefill(prompt)
+        toks, seen = [], []
+        tok = self.sample(logits, temperature)
+        for _ in range(n_new):
+            toks.append(tok)
+            seen.append(logits)
+            logits, _ = self.decode(tok)
+            tok = self.sample(logits, temperature)
+        out = torch.stack(toks, dim=1)
+        return (out, torch.stack(seen, dim=1)) if return_logits else out
 
     def decode_masked(self, tokens_t: torch.Tensor, pos: int,
                       mask: torch.Tensor, *, with_logits: bool = True):

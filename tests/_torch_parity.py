@@ -10,6 +10,7 @@ from repro.core import decomposition as jdeco
 from repro.training import optimizer as jopt
 from repro.training.loop import make_train_step as j_make_train_step
 from repro_torch import bridge
+from repro_torch.configs import paper_synthetic as tsyn_cfg
 from repro_torch.configs import registry as treg
 from repro_torch.training import optimizer as topt
 from repro_torch.training.loop import make_train_step, to_device, trainable
@@ -22,13 +23,22 @@ TOL_E2E = {"float32": 1e-4, "bfloat16": 2e-2}
 ARCHS = ("granite-8b", "paper-synthetic")
 
 
+def port_config(arch):
+    """The port's LM config of ``arch``: its SMOKE, or for
+    ``paper-synthetic`` the LM-scale SERVING workload (the registry gives
+    that name's PaperMLPConfig, as the reference's does)."""
+    if arch == "paper-synthetic":
+        return tsyn_cfg.SERVING
+    return treg.get_smoke(arch)
+
+
 def configs(arch):
-    """(JAX cfg, port cfg): granite-8b SMOKE (f32) or the paper's SERVING
-    workload (bf16)."""
+    """(JAX cfg, port cfg): an LM config's SMOKE (granite-8b f32, zamba2-7b
+    f32) or the paper's SERVING workload (bf16)."""
     if arch == "paper-synthetic":
         from repro.configs.paper_synthetic import SERVING
-        return SERVING, treg.get_smoke(arch)
-    return jreg.get_smoke(arch), treg.get_smoke(arch)
+        return SERVING, port_config(arch)
+    return jreg.get_smoke(arch), port_config(arch)
 
 
 def with_threshold(cfg, threshold, margin=0.0):

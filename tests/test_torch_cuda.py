@@ -13,7 +13,7 @@ import torch
 import copy
 
 from repro_torch import bridge, kernels
-from repro_torch.configs import registry
+from repro_torch.configs import paper_synthetic, registry
 from repro_torch.core.decomposition import init_collab_lm
 from repro_torch.data.tokens import lm_batches
 from repro_torch.kernels import ops
@@ -129,7 +129,8 @@ def test_kernel_refuses_unsupported_head_dim(cuda):
 def test_session_on_card_goes_through_kernels(cuda, arch):
     """sync and scan sessions on the card: u and triggers identical, fhat
     within 1e-6, fhat <= u, and both kernels launched."""
-    cfg = registry.get_smoke(arch).replace(dtype="bfloat16")
+    cfg = (paper_synthetic.SERVING if arch == "paper-synthetic"
+           else registry.get_smoke(arch)).replace(dtype="bfloat16")
     model = init_collab_lm(cfg, torch.Generator(cuda).manual_seed(0), cuda)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 24))
     probe = MonitorSession.open(model, cfg, batch=4, max_len=32,
@@ -426,3 +427,84 @@ def test_zamba2_smoke_on_card_matches_cpu(cuda):
             torch.testing.assert_close(ha.cpu(), hb, atol=1e-4, rtol=1e-4)
     assert kernels.launch_counts()["decode_attention"] == 6 * (
         cfg.n_layers // cfg.shared_attn_every)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "paper-synthetic",
+                                  "zamba2-7b"])
+def test_generate_on_card_matches_cpu(cuda, arch):
+    """Greedy generate on the card (decode kernel) against the CPU (plain
+    version), granite and zamba2 SMOKE in f32 and the paper's SERVING in
+    bf16: logits within the end-to-end tolerance (1e-4, 2e-2), tokens
+    equal row by row up to a first difference, allowed only inside the tie
+    band; decode_attention launched once per attention layer per
+    position; a seeded sampled run repeats itself bitwise."""
+    from repro_torch.models import api
+    from repro_torch.models.hybrid import _layout
+    from repro_torch.serving.engine import ServeEngine
+    cfg = (paper_synthetic.SERVING if arch == "paper-synthetic"
+           else registry.get_smoke(arch))
+    cpu = torch.device("cpu")
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[cfg.dtype]
+    model_cpu = api.init_model(cfg, torch.Generator().manual_seed(0), cpu)
+    model_dev = copy.deepcopy(model_cpu).to(cuda)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 8)))
+    kernels.reset_launch_counts()
+    ta, la = ServeEngine(model_dev, cfg, 4, 32, cuda).generate(
+        prompt, 8, return_logits=True)
+    layers = (_layout(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers)
+    assert kernels.launch_counts()["decode_attention"] == layers * 16
+    tb, lb = ServeEngine(model_cpu, cfg, 4, 32, cpu).generate(
+        prompt, 8, return_logits=True)
+    ta, la = ta.cpu(), la.cpu()
+    top2 = lb.topk(2, dim=-1).values
+    for b in range(4):
+        for j in range(8):
+            torch.testing.assert_close(la[b, j], lb[b, j], atol=tol, rtol=tol)
+            if ta[b, j] != tb[b, j]:
+                margin = top2[b, j, 0] - top2[b, j, 1]
+                assert margin <= 2 * tol * (1 + top2[b, j, 0].abs())
+                break
+    runs = [ServeEngine(model_dev, cfg, 4, 32, cuda, seed=3).generate(
+        prompt, 8, temperature=1.0) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_mode", ["truncated", "cosine", "independent"])
+def test_train_paper_on_card_matches_cpu(cuda, u_mode):
+    """Ten make_paper_step steps of the financial FULL config on the card
+    against the CPU from the same weights and batches: every parameter
+    within lr/10; train_paper runs on the card and keeps fhat <= u."""
+    from repro_torch import bridge
+    from repro_torch.configs import paper_financial
+    from repro_torch.core.decomposition import init_paper_decomposition
+    from repro_torch.data.synthetic import financial_series, financial_xy
+    from repro_torch.training.loop import (make_paper_step, paper_batches,
+                                           train_paper)
+    cfg, lr, cpu = paper_financial.FULL, 2e-3, torch.device("cpu")
+    kw = {"cosine": {"n_modes": 48},
+          "independent": {"u_dims": (29, 10, 1)}}.get(u_mode, {})
+    x, f = financial_xy(financial_series(0))
+    m_cpu = init_paper_decomposition(cfg, torch.Generator().manual_seed(0),
+                                     u_mode=u_mode, device=cpu, **kw)
+    m_dev = bridge.paper_from_numpy(bridge.paper_to_numpy(m_cpu), cfg,
+                                    u_mode, cuda)
+    idx = paper_batches(x.shape[0], steps=10, batch=256, seed=0)
+    for model, dev in ((m_dev, cuda), (m_cpu, cpu)):
+        opt = AdamW(lr=lr, clip_norm=0.0)
+        state = opt.init(trainable(model))
+        step = make_paper_step(cfg, opt, u_mode=u_mode, safety_weight=20.0)
+        xd, fd = torch.as_tensor(x, device=dev), torch.as_tensor(f, device=dev)
+        for row in idx:
+            ix = torch.as_tensor(row, device=dev)
+            step(model, state, xd[ix], fd[ix])
+    for (name, a), (_, b) in zip(m_dev.named_parameters(),
+                                 m_cpu.named_parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=0.1 * lr,
+                                   rtol=0, msg=name)
+    _, res = train_paper(torch.Generator(cuda).manual_seed(0), cfg, x, f,
+                         u_mode=u_mode, steps=50, lr=lr, device=cuda, **kw)
+    out = res["out"]
+    assert out["u"].is_cuda and (out["fhat"] <= out["u"]).all()

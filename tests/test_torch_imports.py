@@ -16,6 +16,10 @@ import repro_torch, repro_torch.bridge, repro_torch.serving
 import repro_torch.serving.api, repro_torch.kernels.ops
 import repro_torch.training.loop, repro_torch.training.schedule
 import repro_torch.core.losses, repro_torch.data.tokens
+import repro_torch.core.safety, repro_torch.core.theory
+import repro_torch.data.synthetic, repro_torch.training.checkpoint
+import repro_torch.configs.registry, repro_torch.configs.paper_financial
+import repro_torch.bench.paper, repro_torch.serving.engine
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)
@@ -56,21 +60,32 @@ def test_entry_point_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["init_collab_lm", "init_model",
-                                   "init_cache", "collab_from_numpy"])
+                                   "init_cache", "collab_from_numpy",
+                                   "init_paper_decomposition",
+                                   "paper_from_numpy", "ServeEngine"])
 def test_model_constructors_default_to_the_card(monkeypatch, entry):
     """The model and cache constructors read device=None as CUDA too: they
     raise without a card instead of building on the host."""
     from repro_torch import bridge
-    from repro_torch.configs.paper_synthetic import SERVING
-    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.configs.paper_synthetic import FULL, SERVING
+    from repro_torch.core.decomposition import (init_collab_lm,
+                                                init_paper_decomposition)
     from repro_torch.models import api
+    from repro_torch.serving.engine import ServeEngine
+    model = api.init_model(SERVING, torch.Generator().manual_seed(0), "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gen = torch.Generator().manual_seed(0)
     call = {"init_collab_lm": lambda: init_collab_lm(SERVING, gen),
             "init_model": lambda: api.init_model(SERVING, gen),
             "init_cache": lambda: api.init_cache(SERVING, 2, 8),
             "collab_from_numpy": lambda: bridge.collab_from_numpy(
-                {}, SERVING, None)}[entry]
+                {}, SERVING, None),
+            "init_paper_decomposition": lambda: init_paper_decomposition(
+                FULL, gen),
+            "paper_from_numpy": lambda: bridge.paper_from_numpy(
+                {}, FULL, "truncated", None),
+            "ServeEngine": lambda: ServeEngine(model, SERVING, 2, 8,
+                                               None)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

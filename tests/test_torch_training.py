@@ -37,7 +37,7 @@ from repro_torch.training.loop import to_device, trainable, train_collab_lm
 
 from _torch_parity import ARCHS, TOL, TOL_E2E
 from _torch_parity import collab_pair as _collab_pair
-from _torch_parity import port_train_steps, ref_train_steps
+from _torch_parity import port_config, port_train_steps, ref_train_steps
 
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -314,7 +314,7 @@ def test_losses_decrease(arch):
     """Mirror of test_system.py::test_losses_decrease for the port's
     train_collab_lm on the CPU; afterwards fhat <= u holds on a fresh
     batch."""
-    cfg = treg.get_smoke(arch)
+    cfg = port_config(arch)
     batches = ttok.lm_batches(0, cfg, batch=4, seq=32)
     model, hist = train_collab_lm(torch.Generator().manual_seed(0), cfg,
                                   batches, steps=30, lr=1e-3, log_every=1,
@@ -334,7 +334,7 @@ def test_losses_decrease(arch):
 def test_train_collab_lm_defaults_to_the_card(monkeypatch):
     """device=None means CUDA: without a card it raises before it builds
     anything on the host."""
-    cfg = treg.get_smoke("paper-synthetic")
+    cfg = port_config("paper-synthetic")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_collab_lm(torch.Generator().manual_seed(0), cfg,
