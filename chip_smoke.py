@@ -52,10 +52,34 @@ Phases, each printing its own lines:
               position, two greedy runs give the same tokens bitwise and
               every logit is finite; prefill and generate tokens/s, ms per
               step, peak memory.
+8. async   -- MonitorSession in async mode, after the serve phases:
+              granite-8b (36 layers, the serve cell's traffic) under the
+              stream transport (a CUDA side stream) at max_staleness 0
+              and 2, thread at 2, mock_remote at 4 (20-ms simulated round
+              trip) and inproc at 0, each against the phase's own sync run
+              (u, triggers, per-stream bytes, server_pos, the final server
+              cache and the launch counts bitwise; fhat too at 0; fhat <=
+              u; nothing in flight at close); each stream dispatch's host
+              time against its catch-up's device time (CUDA events);
+              witnesses that a dispatch does not wait for the side stream:
+              the stream's launch queue depth, no synchronising CUDA runtime
+              call inside any dispatch (profiler), and at SMOKE size a
+              dispatch behind 1 s of device work on the side stream that
+              returns well before its catch-up ends; Quantile and
+              Budget threshold policies in sync and async (thresholds move,
+              u bitwise, fhat <= u), FixedPolicy bitwise no policy; a traced
+              sync and async run (bitwise untraced, the Chrome export
+              validates, the span breakdown); the three-rung cascade over
+              two engines.  zamba2-7b (81 layers, 32 of the 64 steps):
+              one stream run at max_staleness 2 with the same checks.
+              Per run: tokens/s, ms/step, stall, overlap ratio, peak
+              memory.
 
 --profile adds torch.profiler breakdowns of one sync and one scan run, of
 one train step per model, of a train_paper step and of a generate step
-per model.  Then one JSON line of the kernels, the
+per model, and the CUDA stream ids of the serve kernels in a short async
+stream run per model (the phases run in the order 1-4, 8, 5-7).  Then
+one JSON line of the kernels, the
 card's name and power limit, and a last line {"ok": true, "device":
 {...}}.  Any failed check raises, so the script exits non-zero and
 prints no result; it also does so without a GPU or outside a checkout
@@ -156,10 +180,14 @@ def time_ms(torch, fn, iters: int):
 
 def device_kernels(torch, fn, calls: int = 5) -> list:
     """The device kernels one call of ``fn`` runs, by name, as the profiler
-    sees them over ``calls`` calls (raises if the counts differ)."""
+    sees them over ``calls`` calls (raises if the counts differ).  A
+    throwaway profiled call comes first: the tracer has dropped a device
+    event of the first session it traced in a process."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]):
+            fn()
+            torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -1542,6 +1570,446 @@ def phase_generate(torch, dev, args, cfg) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 8
+# the async runs of the granite serve cell: (transport, max_staleness);
+# mock_remote keeps its 20-ms simulated round trip
+ASYNC_RUNS = (("stream", 0), ("stream", 2), ("thread", 2),
+              ("mock_remote", 4), ("inproc", 0))
+# the threshold policies' targets (below the calibrated rate 0.15, so a
+# stream's threshold has room to rise above the floor)
+POLICY_TARGET = 0.05
+# the side-stream witnesses: the device work queued on the worker's stream
+# before a dispatch, and the profiled steps of the full-width session
+WITNESS_SLEEP_S, WITNESS_STEPS = 1.0, 8
+# zamba2's async run (and its own sync run) serves 32 of the serve cell's
+# 64 steps: a zamba2 sync step costs ~3x granite's, and chip_smoke keeps
+# within its time budget
+HYBRID_ASYNC_STEPS = 32
+
+
+def sleep_cycles(torch, seconds: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that keep the card busy for about
+    ``seconds``, measured with CUDA events."""
+    n = 10**8
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(n)
+    end.record()
+    end.synchronize()
+    return int(n * seconds * 1e3 / start.elapsed_time(end))
+
+
+def phase_async(torch, dev, args, cfg, full: bool) -> dict:
+    """MonitorSession in async mode over ``cfg`` at full width and depth,
+    each run against the phase's own sync run; returns the kernels' launch
+    counts over the phase.  ``full`` (granite): every transport of
+    ASYNC_RUNS, the side-stream witness, the threshold policies, a traced
+    sync and async run, and the cascade; otherwise (zamba2) one ``stream``
+    run at max_staleness 2."""
+    from repro_torch import kernels
+    from repro_torch.configs.paper_synthetic import SERVING_TRIGGER_RATE
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.serving import MonitorSession, SessionConfig
+    from repro_torch.serving.async_rpc import StreamWorker
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    B, ML, S = BATCH, MAX_LEN, (STEPS if full else HYBRID_ASYNC_STEPS)
+    model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(args.seed),
+                           dev)
+    toks = np.random.default_rng(args.seed).integers(0, cfg.vocab_size, (B, S))
+    probe = MonitorSession.open(model, cfg, batch=B, max_len=ML, device=dev,
+                                config=SessionConfig(mode="scan")).run(toks)
+    thr = float(np.quantile(probe["u"], 1.0 - SERVING_TRIGGER_RATE))
+    point = dict(threshold=thr, trigger_margin=0.0)
+    cfg_thr = cfg.replace(monitor=cfg.monitor.__class__(
+        **{**cfg.monitor.__dict__, **point}))
+    label = f"[async] {cfg.name}"
+
+    def engine():
+        return CollaborativeEngine(model, cfg_thr, B, ML, device=dev)
+
+    def serve(config, *, worker_of=None, steps=S, inspect=None):
+        """One run from a fresh engine: (result, seconds, launches, peak
+        GiB, worker).  ``worker_of(engine)`` builds the session's worker
+        (the stream runs keep theirs, to read its timings);
+        ``inspect(engine)`` reads the engine before it is dropped, so no
+        run's peak memory holds an earlier run's caches."""
+        gc.collect()
+        eng = engine()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        worker = worker_of(eng) if worker_of is not None else None
+        r = eng.session(config, worker=worker).run(toks[:, :steps])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out = (r, dt, kernels.launch_counts(),
+               torch.cuda.max_memory_allocated(dev) / 2**30, worker)
+        if inspect is not None:
+            inspect(eng)
+        return out
+
+    def line(name, r, dt, peak, steps=S):
+        a = r["comms"].get("async", {})
+        return (f"{name}: {B * steps / dt:.1f} tokens/s, "
+                f"{dt / steps * 1e3:.2f} ms/step, stall "
+                f"{a.get('stall_s', 0.0):.4f} s, overlap "
+                f"{a.get('overlap_ratio', float('nan')):.3f}, requests "
+                f"{a.get('requests', 0)} ({a.get('merged_late', 0)} late), "
+                f"inflight peak {a.get('inflight_peak', 0)}; trigger rate "
+                f"{r['comms']['trigger_rate']:.3f}; peak device memory "
+                f"{peak:.2f} GiB")
+
+    # warm-up: first launches, and a stream's and a thread's first use
+    for conf in ({}, dict(mode="async", transport="stream"),
+                 dict(mode="async", transport="thread")):
+        serve(SessionConfig(**conf), steps=4)
+    base = {}
+
+    def keep(eng):  # the sync run's final server state, on the host
+        base["pos"] = eng.server_pos.copy()
+        base["cache"] = {name: [x.cpu() for x in entry]
+                         for name, entry in eng.server.cache.items()}
+    sync, dt, sync_counts, peak, _ = serve(SessionConfig(), inspect=keep)
+    print(f"{label} " + line("sync (this phase's own)", sync, dt, peak))
+    check(0.0 < sync["triggered"].mean() < 1.0, "mixed triggers")
+    total = dict.fromkeys(SERVE_KERNELS, 0)
+    for name in SERVE_KERNELS:
+        total[name] += sync_counts[name]
+        check(sync_counts[name] > 0, f"{name} launched in the sync run")
+
+    def check_run(name, r, counts, bitwise: bool):
+        for key in ("u", "triggered") + (("fhat",) if bitwise else ()):
+            check(np.array_equal(r[key], sync[key]),
+                  f"{name}: {key} bitwise equal to sync")
+        check((r["fhat"] <= r["u"]).all(), f"{name}: fhat <= u")
+        per, per1 = r["comms"]["per_stream"], sync["comms"]["per_stream"]
+        check(np.array_equal(per["bytes_sent"], per1["bytes_sent"])
+              and (per["bytes_sent"] <= per["bytes_baseline"]).all(),
+              f"{name}: per-stream bytes equal to sync and within baseline")
+        check(r["comms"]["async"]["inflight_now"] == 0,
+              f"{name}: nothing in flight at close")
+        for k in SERVE_KERNELS:
+            check(counts[k] == sync_counts[k] > 0,
+                  f"{name}: {k} launches {counts[k]} == sync's "
+                  f"{sync_counts[k]}")
+            total[k] += counts[k]
+
+    def check_state(name, eng):
+        check(np.array_equal(eng.server_pos, base["pos"]),
+              f"{name}: server_pos equal to sync")
+        check(all(torch.equal(x.cpu(), y) for n in base["cache"]
+                  for x, y in zip(eng.server.cache[n], base["cache"][n])),
+              f"{name}: final server cache bitwise equal to sync")
+
+    runs = ASYNC_RUNS if full else (("stream", 2),)
+    for transport, k in runs:
+        name = f"{transport} k={k}"
+        worker_of = ((lambda e: StreamWorker(e._catchup_apply, e.params,
+                                             e.server.cache))
+                     if transport == "stream" else None)
+        r, dt, counts, peak, worker = serve(
+            SessionConfig(mode="async", transport=transport,
+                          max_staleness=k), worker_of=worker_of,
+            inspect=lambda e, name=name: check_state(name, e))
+        check_run(name, r, counts, bitwise=(k == 0))
+        print(f"{label} " + line(name, r, dt, peak))
+        if worker is not None:
+            tm = list(worker.timings)
+            host = np.asarray([x.host_s * 1e3 for x in tm])
+            devt = np.asarray([x.device_ms() for x in tm])
+            pend = np.mean([x.pending_at_return for x in tm])
+            print(f"{label} {name} dispatch: host {np.median(host):.2f} ms "
+                  f"median ({host.min():.2f}-{host.max():.2f}), its "
+                  f"catch-up on the side stream {np.median(devt):.2f} ms "
+                  f"median ({devt.min():.2f}-{devt.max():.2f}) of device "
+                  f"time (CUDA events); still running at return in "
+                  f"{pend:.0%} of {len(tm)} dispatches")
+        del worker  # it holds its engine's server cache
+    # the host's speed drifts within a call: a second sync run brackets
+    # the async runs, which are compared only within this phase
+    again, dt, counts, peak, _ = serve(SessionConfig())
+    check(np.array_equal(again["fhat"], sync["fhat"]), "sync run repeats")
+    for k in SERVE_KERNELS:
+        total[k] += counts[k]
+    print(f"{label} " + line("sync again, after the async runs", again, dt,
+                             peak))
+    print(f"{label}: every async run has the sync run's u, triggers, "
+          f"per-stream bytes, server_pos, final server cache and launches "
+          f"bitwise ({ {k: sync_counts[k] for k in SERVE_KERNELS} }); fhat "
+          f"bitwise at k=0, fhat <= u")
+    if full:
+        async_extras(torch, dev, model, cfg_thr, toks, sync, serve, line,
+                     total, label)
+    if args.profile:
+        profile_streams(torch, engine, toks[:, :PROFILE_STEPS], label)
+    del model
+    return total
+
+
+# runtime calls that make the host wait for the card (or may): none may
+# run inside a StreamWorker dispatch
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
+              "cudaMemset", "cudaMalloc", "cudaFree", "cudaMallocHost",
+              "cudaHostAlloc", "cudaFreeHost", "cuCtxSynchronize",
+              "cuStreamSynchronize", "cuEventSynchronize")
+
+
+def launch_queue_depth(torch, dev, limit: int = 20000) -> int:
+    """How many launches a stream queues behind busy device work before
+    ``cudaLaunchKernel`` blocks: a 1-s sleep on a fresh stream, then tiny
+    kernels until one launch takes over 0.2 s (``limit`` if none does)."""
+    s = torch.cuda.Stream(dev)
+    x = torch.zeros(1, device=dev)
+    x.add_(1)  # the kernel loaded before the timed launches
+    cycles = sleep_cycles(torch, 1.0)
+    torch.cuda.synchronize()
+    n = limit
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(cycles)
+        for i in range(limit):
+            t0 = time.perf_counter()
+            x.add_(1)
+            if time.perf_counter() - t0 > 0.2:
+                n = i
+                break
+    torch.cuda.synchronize()
+    return n
+
+
+def stream_witness(torch, dev, model, cfg, toks, label: str) -> None:
+    """Three witnesses that a ``stream`` dispatch does not wait for the
+    side stream: (1) the stream's launch queue depth; (2) at full width,
+    the CUDA runtime calls inside every ``stream_dispatch`` profiler range
+    of a session: none that synchronises; (3) at SMOKE size, where a
+    catch-up's launches fit the queue, a dispatch queued behind
+    WITNESS_SLEEP_S of device work on the side stream returns well before
+    its catch-up ends."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import registry
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.serving import SessionConfig
+    from repro_torch.serving.async_rpc import StreamWorker
+    from repro_torch.serving.collaborative import CollaborativeEngine
+
+    depth = launch_queue_depth(torch, dev)
+    print(f"{label} launch queue: a stream takes {depth} launches behind "
+          f"busy device work before cudaLaunchKernel blocks")
+
+    def session(model, cfg, B, ML):
+        eng = CollaborativeEngine(model, cfg, B, ML, device=dev)
+        w = StreamWorker(eng._catchup_apply, eng.params, eng.server.cache)
+        return eng, w, eng.session(SessionConfig(
+            mode="async", transport="stream", max_staleness=2), worker=w)
+
+    warm = 4
+    eng, w, sess = session(model, cfg, BATCH, MAX_LEN)
+    for t in range(warm):
+        sess.step(toks[:, t])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for t in range(warm, warm + WITNESS_STEPS):
+            sess.step(toks[:, t])
+    sess.close()
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name == "stream_dispatch"]
+    check(len(spans) > 0, "the witness session dispatched")
+    calls, longest = {}, {}
+    for e in events:
+        if e.name.startswith("cu") and any(
+                r.start <= e.time_range.start < r.end for r in spans):
+            calls[e.name] = calls.get(e.name, 0) + 1
+            longest[e.name] = max(longest.get(e.name, 0.0),
+                                  e.time_range.elapsed_us() / 1e3)
+    print(f"{label} runtime calls inside {len(spans)} stream dispatches "
+          f"(granite full width): "
+          + ", ".join(f"{k} {n}x (longest {longest[k]:.3f} ms)"
+                      for k, n in sorted(calls.items())))
+    syncs = sorted(set(calls) & set(SYNC_CALLS))
+    check(not syncs, f"no synchronising runtime call in a dispatch: {syncs}")
+
+    small = registry.get_smoke(cfg.name).replace(dtype="bfloat16")
+    smodel = init_collab_lm(small, torch.Generator(dev).manual_seed(0), dev)
+    eng, w, sess = session(smodel, small, 4, 32)
+    eng._u_head = lambda p, h: torch.ones(h.shape[0], device=dev)
+    stoks = np.random.default_rng(0).integers(0, small.vocab_size, (4, 16))
+    for t in range(warm):  # every stream triggers every step
+        sess.step(stoks[:, t])
+    torch.cuda.synchronize()
+    n_warm = len(w.timings)
+    cycles = sleep_cycles(torch, WITNESS_SLEEP_S)
+    slept_at = time.perf_counter()
+    with torch.cuda.stream(w.stream):
+        torch.cuda._sleep(cycles)
+    sess.step(stoks[:, warm])
+    last = w.timings[n_warm]
+    returned = last.returned_at - slept_at
+    sess.close()
+    print(f"{label} side-stream witness ({cfg.name} SMOKE, whose catch-up "
+          f"fits the launch queue): a dispatch queued behind "
+          f"{WITNESS_SLEEP_S:.1f} s of device work took "
+          f"{last.host_s * 1e3:.2f} ms of host time and returned "
+          f"{returned:.3f} s after the work was queued, its catch-up still "
+          f"queued ({last.pending_at_return}); the catch-up ran "
+          f"{last.device_ms():.2f} ms on the card, ending at least "
+          f"{WITNESS_SLEEP_S - returned:.3f} s after the dispatch returned")
+    check(last.pending_at_return and returned < 0.25 * WITNESS_SLEEP_S,
+          "a dispatch returns well before its catch-up ends")
+
+
+def async_extras(torch, dev, model, cfg, toks, sync, serve, line, total,
+                 label) -> dict:
+    """The granite async phase's side-stream witness, policies, traced
+    runs and cascade (see ``phase_async``); adds their launches to
+    ``total``."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.observability import breakdown_table, load_trace
+    from repro_torch.serving import (BudgetPolicy, CascadeSession,
+                                     FixedPolicy, QuantilePolicy,
+                                     SessionConfig)
+    from repro_torch.serving.async_rpc import StreamWorker
+    from repro_torch.serving.collaborative import CollaborativeEngine
+
+    def add(counts):
+        for k in SERVE_KERNELS:
+            total[k] += counts[k]
+
+    # the side-stream witnesses (see stream_witness)
+    stream_witness(torch, dev, model, cfg, toks, label)
+
+    # threshold policies: FixedPolicy is no policy; Quantile and Budget in
+    # sync and in async (thread, k=2) move their thresholds
+    fixed, _, counts, _, _ = serve(SessionConfig(policy=FixedPolicy()))
+    add(counts)
+    for key in ("u", "fhat", "triggered"):
+        check(np.array_equal(fixed[key], sync[key]),
+              f"FixedPolicy: {key} bitwise equal to no policy")
+    print(f"{label} FixedPolicy: u, fhat and triggers bitwise equal to the "
+          f"session without a policy")
+    for make in (QuantilePolicy, BudgetPolicy):
+        us = {}
+        for mode, conf in (("sync", {}), ("async thread k=2", dict(
+                mode="async", transport="thread", max_staleness=2))):
+            pol = make(POLICY_TARGET)
+            taus = []
+            update = pol.update
+
+            def traced_update(*a, _update=update, _pol=pol, _taus=taus):
+                _update(*a)
+                _taus.append(_pol.step_thresholds().copy())
+            pol.update = traced_update
+            r, dt, counts, peak, _ = serve(SessionConfig(policy=pol,
+                                                         **conf))
+            add(counts)
+            taus = np.stack(taus)
+            moved = (taus > np.float32(pol.tau0)).any(axis=1)
+            check(moved.any(), f"{pol.name} {mode}: the thresholds move")
+            check((r["fhat"] <= r["u"]).all(),
+                  f"{pol.name} {mode}: fhat <= u")
+            us[mode] = r["u"]
+            print(f"{label} " + line(f"{pol.name} policy, {mode}", r, dt,
+                                     peak)
+                  + f"; thresholds above the floor {pol.tau0:.4f} in "
+                  f"{moved.mean():.0%} of steps, the largest "
+                  f"{float(taus.max()):.4f}")
+        check(np.array_equal(us["sync"], us["async thread k=2"]),
+              f"{make.__name__}: u bitwise equal in sync and async")
+
+    # traced runs: bitwise equal to untraced; the exports validate
+    base_k2, _, counts, _, _ = serve(SessionConfig(
+        mode="async", transport="inproc", max_staleness=2))
+    add(counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, conf, base in (
+                ("sync", {}, sync),
+                ("async inproc k=2", dict(mode="async", transport="inproc",
+                                          max_staleness=2), base_k2)):
+            held = {}
+            r, dt, counts, peak, _ = serve(
+                SessionConfig(trace=True, **conf),
+                inspect=lambda e: held.update(tracer=e._tracer))
+            add(counts)
+            for key in ("u", "fhat", "triggered"):
+                check(np.array_equal(r[key], base[key]),
+                      f"traced {name}: {key} bitwise equal to untraced")
+            path = str(Path(tmp) / "trace.json")
+            n = held["tracer"].export(path)
+            load_trace(path)  # runs validate_chrome_trace: raises if bad
+            print(f"{label} " + line(f"traced {name}", r, dt, peak)
+                  + f"; bitwise equal to untraced, {n} spans exported, the "
+                  f"Chrome trace validates")
+            for row in breakdown_table(held["tracer"].spans()):
+                print(f"{label}   {row}")
+
+    # the cascade: two full-width engines on the same weights, inproc
+    # tiers; escalate where the regional residual stays in the top 5%
+    esc = float(np.quantile(sync["fhat"], 0.95))
+    gc.collect()
+    tiers = [CollaborativeEngine(model, cfg, BATCH, MAX_LEN, device=dev
+                                 ).session(SessionConfig())
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = CascadeSession(*tiers, escalate_above=esc).run(toks)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    add(kernels.launch_counts())
+    rep = out["comms"]
+    for key in ("fhat", "fhat_tier1", "fhat_tier2"):
+        check((out[key] <= out["u"]).all(), f"cascade: {key} <= u")
+    check(np.array_equal(out["u"], sync["u"]), "cascade: u equal to sync")
+    check(out["escalated"].any(), "cascade: some rows escalate")
+    print(f"{label} cascade (edge -> regional -> central, inproc tiers, "
+          f"escalate above {esc:.4f}): {BATCH * STEPS / dt:.1f} tokens/s, "
+          f"{dt / STEPS * 1e3:.2f} ms/step; {rep['escalated_steps']} "
+          f"escalated stream-steps; tier-1 bytes {rep['tier1']['bytes_sent']}"
+          f" of {rep['tier1']['bytes_baseline']}, tier-2 bytes "
+          f"{rep['tier2']['bytes_sent']} of {rep['tier2']['bytes_baseline']};"
+          f" fhat <= u at every rung; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return total
+
+
+def profile_streams(torch, engine, toks, label: str) -> None:
+    """The CUDA streams the serve kernels ran on in a short ``stream``
+    session (max_staleness 2) under torch.profiler, read from its Chrome
+    trace: the catch-up (decode_attention of the server tower and the
+    combine) on the worker's stream, the edge decode on the default one."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile as prof
+    from repro_torch.serving import SessionConfig
+    eng = engine()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        eng.session(SessionConfig(mode="async", transport="stream",
+                                  max_staleness=2)).run(toks)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        p.export_chrome_trace(path)
+        events = json.load(open(path))["traceEvents"]
+    streams = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        kind = ("decode_attention" if "decode_attention" in e["name"] else
+                "monitor_combine" if "monitor_combine" in e["name"] else
+                "other")
+        sid = e.get("args", {}).get("stream", e.get("tid"))
+        streams.setdefault(kind, {}).setdefault(sid, 0)
+        streams[kind][sid] += 1
+    print(f"[profile] {label} stream k=2, {toks.shape[1]} steps: kernel "
+          f"launches by CUDA stream id: {streams}")
+    check(len(streams.get("monitor_combine", {})) == 1
+          and len(streams.get("decode_attention", {})) >= 2
+          and set(streams["monitor_combine"])
+          <= set(streams["decode_attention"]),
+          "the catch-up kernels ran on a stream of their own")
+
+
 def _dev_us(event) -> float:
     """Self device time of a profiler row (renamed across PyTorch versions)."""
     return getattr(event, "self_device_time_total",
@@ -1610,6 +2078,12 @@ def main(argv=None) -> int:
         for name in SERVE_KERNELS:
             counts[name] += run[name]
         gc.collect()  # the serve phase's model and sessions are gone
+        torch.cuda.empty_cache()
+    for cfg, every_run in ((full, True), (zfull, False)):
+        run = phase_async(torch, dev, args, cfg, every_run)
+        for name in SERVE_KERNELS:
+            counts[name] += run[name]
+        gc.collect()
         torch.cuda.empty_cache()
     for cfg, n_full, lr_witness in (
             (full.replace(n_layers=TRAIN_LAYERS), full.n_layers, True),

@@ -2,8 +2,9 @@
 (``core/gating.py``): ``trigger_mask`` and ``masked_correction`` (dense
 compute, the trigger applied as a mask, as the paper-scale experiments
 use it), ``compact_correction`` (the serving scan path's static-capacity
-gather), and ``CommsMeter``, per stream for the sync and scan serving
-paths and in aggregate for the paper's Fig-4 accounting."""
+gather), and ``CommsMeter``, per stream for the serving paths (with the
+async path's pipelining counters) and in aggregate for the paper's Fig-4
+accounting."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -63,9 +64,17 @@ class CommsMeter:
 
     ``bytes_per_request`` is the payload of one shipped token; the
     baseline ships every observed token.  Each token ships at most once,
-    so ``bytes_sent <= bytes_baseline``.  This is the reference's meter
-    without its async, wire, shm and failover counters, which belong to
-    paths not ported yet.
+    so ``bytes_sent <= bytes_baseline``.  In async mode tokens are charged
+    at dispatch, when they leave the device, so the bytes and the Fig-4
+    reduction do not depend on the staleness window.
+
+    The async path also meters its pipeline (``serving/async_rpc.py``'s
+    ``Dispatcher`` fills these): per-stream in-flight requests, the edge
+    loop's stall time blocked on overdue replies, the server busy time,
+    and ``overlap_ratio``, the share of request wall time hidden behind
+    edge decode.  This is the reference's meter without its wire, shm and
+    failover counters, which belong to transports not ported yet
+    (ROADMAP queue 1, items 5-6).
     """
 
     bytes_per_request: int
@@ -76,16 +85,28 @@ class CommsMeter:
     tokens_shipped: int = 0
     tokens_sent: Optional[np.ndarray] = None
     tokens_seen: Optional[np.ndarray] = None
+    # -- async pipelining (filled by the Dispatcher) ------------------------
+    requests_inflight: Optional[np.ndarray] = None  # (n_streams,) in flight now
+    inflight_peak: int = 0     # max simultaneous in-flight requests
+    dispatched: int = 0        # async requests dispatched
+    merged_late: int = 0       # replies merged >= 1 step after their trigger
+    stall_s: float = 0.0       # edge-loop time blocked on overdue replies
+    server_busy_s: float = 0.0  # worker compute time
+    request_wall_s: float = 0.0  # dispatch -> reply visible (incl. latency)
 
     def __post_init__(self) -> None:
         if self.tokens_sent is None:
             self.tokens_sent = np.zeros(self.n_streams, np.int64)
         if self.tokens_seen is None:
             self.tokens_seen = np.zeros(self.n_streams, np.int64)
+        if self.requests_inflight is None:
+            self.requests_inflight = np.zeros(self.n_streams, np.int64)
         self._ring_events = np.zeros((self.n_streams, self.rate_window), bool)
         self._ring_seen = np.zeros((self.n_streams, self.rate_window), bool)
         self._ring_pos = 0
         self._per_stream_used = False
+        self._async_used = False
+        self._inflight_reqs = 0
 
     def update(self, n_triggered: int, n_total: int) -> None:
         """Aggregate accounting: ``n_triggered`` of ``n_total`` inputs
@@ -116,6 +137,40 @@ class CommsMeter:
         ev = self._ring_events.sum(axis=1, dtype=np.int64)
         seen = self._ring_seen.sum(axis=1, dtype=np.int64)
         return ev / np.maximum(seen, 1)
+
+    # -- async pipelining ----------------------------------------------------
+    def record_dispatch(self, mask) -> None:
+        """A catch-up request left the edge; ``mask``: (n_streams,) bool of
+        the streams it serves."""
+        self._async_used = True
+        self.requests_inflight += np.asarray(mask, bool)
+        self.dispatched += 1
+        self._inflight_reqs += 1
+        self.inflight_peak = max(self.inflight_peak, self._inflight_reqs)
+
+    def record_merge(self, mask, age: int) -> None:
+        """The reply for ``mask`` merged ``age`` edge steps after its
+        trigger (0: the strict synchronous boundary)."""
+        self.requests_inflight -= np.asarray(mask, bool)
+        self._inflight_reqs -= 1
+        if age > 0:
+            self.merged_late += 1
+
+    def record_stall(self, dt: float) -> None:
+        """The edge loop blocked ``dt`` seconds on an overdue reply."""
+        self.stall_s += float(dt)
+
+    def record_server_busy(self, compute_s: float, wall_s: float) -> None:
+        self.server_busy_s += float(compute_s)
+        self.request_wall_s += float(wall_s)
+
+    @property
+    def overlap_ratio(self) -> float:
+        """Share of request wall time (server compute + network) hidden
+        behind edge decode; 1.0 when the pipeline never stalled."""
+        if self.request_wall_s <= 0.0:
+            return 1.0 if self.stall_s == 0.0 else 0.0
+        return max(0.0, 1.0 - self.stall_s / self.request_wall_s)
 
     @property
     def trigger_rate(self) -> float:
@@ -148,4 +203,15 @@ class CommsMeter:
                "reduction_x": self.reduction}
         if self._per_stream_used:
             rep["per_stream"] = self.per_stream_report()
+        if self._async_used:  # only when the pipelined path ran
+            rep["async"] = {
+                "requests": self.dispatched,
+                "merged_late": self.merged_late,
+                "inflight_now": int(self.requests_inflight.sum()),
+                "inflight_peak": self.inflight_peak,
+                "stall_s": self.stall_s,
+                "server_busy_s": self.server_busy_s,
+                "request_wall_s": self.request_wall_s,
+                "overlap_ratio": self.overlap_ratio,
+            }
         return rep

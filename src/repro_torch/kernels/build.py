@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -90,13 +91,16 @@ class CudaKernel:
     returns a non-zero ``cudaError_t`` (a launch the card refused never
     runs, and a later synchronise would not report it), and counts the
     launch.  ``launches`` is read and reset by callers that need to show
-    which path ran (``chip_smoke.py``).
+    which path ran (``chip_smoke.py``).  The count is taken under a lock:
+    an async session's worker thread launches beside the edge loop, and
+    ``+= 1`` on an attribute is not atomic across threads.
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source, self.symbol = source, symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._lib = None
         self._fn = None
         self._err = None
@@ -121,7 +125,8 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{rc} ({self._err(rc).decode()})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
     def call(self, symbol: str, argtypes, *args) -> None:
         """Call another entry point of the same library (a query, not a

@@ -1,29 +1,36 @@
-"""The public serving API (``serving/api.py``), sync and scan modes:
-``SessionConfig`` says how a session serves, ``MonitorSession`` serves.
+"""The public serving API (``serving/api.py``): ``TransportSpec`` says
+where the server half runs, ``SessionConfig`` how a session serves, and
+``MonitorSession`` serves.
 
 A session owns the slot pool of its engine: ``attach(stream_id)`` admits
 a stream into a free slot (bit-cold state, its own position 0),
 ``detach(stream_id)`` retires one, and results carry the attached
-streams' rows in slot order with their ids under ``"streams"``.
+streams' rows in slot order with their ids under ``"streams"``.  In async
+mode a membership change first drains the pipeline (a reply must never
+land on a re-leased slot).
 
 Typical use::
 
     sess = MonitorSession.open(model, cfg, batch=8, max_len=512,
-                               config=SessionConfig(mode="sync"))
+                               config=SessionConfig(mode="async",
+                                                    transport="stream",
+                                                    max_staleness=2))
     out = sess.run(tokens)          # (8, S) token ids -> traces + comms
 
-The async mode, the transports, mesh sharding, threshold policies and
-tracing are later slices of the port; asking for them raises an error
-that names their ROADMAP item.
+The wire, shm and fleet transports, mesh sharding and the recompile
+guard are later slices of the port; asking for them raises
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Hashable, Iterable, Iterator, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Hashable, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 
-MODES = ("sync", "scan")
+from repro_torch.serving.async_rpc import TRANSPORTS, not_ported
+
+MODES = ("sync", "scan", "async")
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -32,61 +39,162 @@ def _later(what: str, item: str) -> NotImplementedError:
 
 
 @dataclass(frozen=True)
+class TransportSpec:
+    """Where the server half of the protocol runs.
+
+    kind      -- ``inproc`` (compute at dispatch, deterministic),
+                 ``stream`` (a CUDA side stream; CUDA engines only),
+                 ``thread`` (a worker thread) or ``mock_remote`` (thread +
+                 simulated round trip).  The reference's ``wire`` and
+                 ``shm`` kinds raise ``NotImplementedError`` naming their
+                 ROADMAP item.
+    address   -- ``wire``/``shm`` only (not ported).
+    latency_s -- simulated round trip (stream/thread/mock_remote only).
+    """
+
+    kind: str = "inproc"
+    address: Optional[str] = None
+    latency_s: Optional[float] = None
+
+    def __post_init__(self):
+        if self.kind not in TRANSPORTS:
+            raise ValueError(
+                f"unknown transport {self.kind!r}: valid transports are "
+                + ", ".join(repr(t) for t in TRANSPORTS))
+        if self.kind in ("wire", "shm"):
+            raise not_ported("fleet" if str(self.address).startswith(
+                "fleet:") else self.kind)
+        if self.address is not None:
+            raise ValueError(f"transport {self.kind!r} takes no address "
+                             "(only 'wire' and 'shm')")
+        if self.latency_s is not None and self.kind == "inproc":
+            raise ValueError("transport 'inproc' has no latency model")
+
+    @classmethod
+    def parse(cls, spec: Union[str, "TransportSpec"]) -> "TransportSpec":
+        """``"stream"`` -> TransportSpec("stream"); ``"wire:<address>"``,
+        ``"shm:<address>"`` and ``"fleet:<router>"`` name the reference's
+        socket transports (not ported: they raise).  A TransportSpec
+        passes through unchanged."""
+        if isinstance(spec, cls):
+            return spec
+        s = str(spec)
+        if s.startswith("fleet:"):
+            return cls("wire", address=s)
+        kind, sep, rest = s.partition(":")
+        return cls(kind, address=rest if sep else None)
+
+
+@dataclass(frozen=True)
 class SessionConfig:
     """How a ``MonitorSession`` serves.  Frozen and validated.
 
-    mode           -- ``sync`` (each trigger blocks on the server catch-up)
-                      or ``scan`` (offline trace evaluation, fixed
-                      membership).
+    mode           -- ``sync`` (each trigger blocks on the server catch-up;
+                      over a transport other than inproc this is the strict
+                      ``max_staleness=0`` boundary), ``scan`` (offline trace
+                      evaluation, fixed membership) or ``async`` (pipelined:
+                      corrections merge 1..``max_staleness`` steps late, the
+                      monitor path never waits).
+    transport      -- a ``TransportSpec`` or a string ``parse`` reads.
+    max_staleness  -- the async merge window (ignored for sync/scan).
+    policy         -- a ``serving.policy.TriggerPolicy``: per-stream online
+                      threshold control, bound to the engine's calibrated
+                      operating point at open; it sets the (B,) thresholds
+                      before every step and reads the step's outcome after.
+                      Refused together with ``threshold`` (a policy owns the
+                      trigger point).  None: the fixed calibrated threshold.
     threshold / trigger_margin -- monitor operating-point overrides,
                       applied at engine construction by
                       ``MonitorSession.open``.
     capacity       -- scan mode's static correction capacity.
     monitor_n      -- Eq.-8 truncation override for the serving u head.
-    transport, mesh, policy, trace -- the reference's options of paths not
-                      ported yet; anything but their defaults raises.
+    mesh           -- mesh-sharded serving; not ported (raises).
+    trace          -- span tracing: the session installs an
+                      ``observability.Tracer`` on the engine for its
+                      lifetime (``MonitorSession.tracer``/``export_trace``).
+                      Off by default; traced sessions are bitwise identical
+                      to untraced ones.
+    trace_capacity -- the span ring's bound (oldest dropped).
     """
 
     mode: str = "sync"
+    transport: TransportSpec = field(default_factory=TransportSpec)
+    max_staleness: int = 1
+    policy: Optional[Any] = None
     threshold: Optional[float] = None
     trigger_margin: Optional[float] = None
     capacity: Optional[int] = None
     monitor_n: Optional[int] = None
-    transport: Optional[Any] = None
     mesh: Optional[Any] = None
-    policy: Optional[Any] = None
     trace: bool = False
+    trace_capacity: int = 65536
 
     def __post_init__(self):
-        if self.mode == "async":
-            raise _later("async mode", "4 (policy + async + tracing)")
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}: valid modes are "
                              + ", ".join(repr(m) for m in MODES))
-        if self.transport not in (None, "inproc"):
-            raise _later(f"transport {self.transport!r}",
-                         "4-6 (async workers, wire, shm and fleet)")
+        if not isinstance(self.transport, TransportSpec):
+            object.__setattr__(self, "transport",
+                               TransportSpec.parse(self.transport))
         if self.mesh is not None:
             raise _later("mesh-sharded serving", "8 (mesh + analysis)")
+        if self.max_staleness < 0:
+            raise ValueError("max_staleness must be >= 0")
+        if self.trace_capacity <= 0:
+            raise ValueError("trace_capacity must be >= 1")
+        if self.mode == "scan" and self.transport != TransportSpec():
+            raise ValueError("scan mode is offline: it takes no transport")
         if self.policy is not None:
-            raise _later("threshold policies", "4 (policy + async + tracing)")
-        if self.trace:
-            raise _later("span tracing", "4 (policy + async + tracing)")
+            if self.threshold is not None:
+                raise ValueError(
+                    f"SessionConfig.threshold={self.threshold} and "
+                    f"SessionConfig.policy={type(self.policy).__name__} "
+                    "are mutually exclusive: a policy owns the trigger "
+                    "point (bound to the engine's calibrated operating "
+                    "point at open) -- set the operating point via "
+                    "threshold= alone, or let the policy drive it")
+            from repro_torch.serving.policy import TriggerPolicy
+            if not isinstance(self.policy, TriggerPolicy):
+                raise ValueError(
+                    f"SessionConfig.policy must be a TriggerPolicy, got "
+                    f"{type(self.policy).__name__}")
+
+    @property
+    def needs_worker(self) -> bool:
+        """Whether this session runs through the dispatch/merge layer
+        (async mode, or sync over a transport other than inproc)."""
+        return (self.mode == "async"
+                or (self.mode == "sync" and self.transport.kind != "inproc"))
+
+    @property
+    def effective_staleness(self) -> int:
+        """sync mode over a transport is the strict boundary."""
+        return self.max_staleness if self.mode == "async" else 0
 
 
 class MonitorSession:
     """A context-managed serving session over one ``CollaborativeEngine``.
 
     Lifecycle: ``new`` -> ``open`` (first step/run/enter) -> ``closed``.
-    The session owns the engine's protocol state for its lifetime.
+    ``run`` on a worker-backed session (async, or sync over a transport)
+    drains the pipeline's tail and closes the session when the stream
+    ends; ``step``-driven sessions close at ``__exit__``/``close()``.  The
+    session owns the engine's protocol state for its lifetime.
     """
 
     def __init__(self, engine, config: Optional[SessionConfig] = None, *,
-                 streams: Optional[Iterable[Hashable]] = None):
+                 streams: Optional[Iterable[Hashable]] = None, worker=None):
         self._engine = engine
         self.config = config if config is not None else SessionConfig()
         self._check_engine_matches(engine, self.config)
+        self._worker = worker
         self._state = "new"
+        # controller state lives here, beside the session (client side)
+        self._policy = self.config.policy
+        if self._policy is not None:
+            self._policy.bind(threshold=engine.m.threshold,
+                              margin=engine.m.trigger_margin,
+                              batch=engine.batch)
         B = engine.batch
         ids = list(range(B)) if streams is None else list(streams)
         if len(ids) > B:
@@ -159,11 +267,30 @@ class MonitorSession:
         self.close()
 
     def _ensure_open(self) -> None:
+        if self._state == "open":
+            return
         if self._state == "closed":
             raise RuntimeError("session is closed")
+        if self.config.trace:
+            # installed before any worker is built, so the dispatcher
+            # captures it
+            from repro_torch.observability import Tracer
+            self._engine._tracer = Tracer(self.config.trace_capacity)
+        else:
+            # a reused engine must not keep a previous session's tracer
+            self._engine._tracer = None
+        if self.config.needs_worker:
+            spec = self.config.transport
+            self._engine._start_async(
+                transport=spec.kind,
+                max_staleness=self.config.effective_staleness,
+                latency_s=spec.latency_s, worker=self._worker)
         self._state = "open"
 
     def close(self) -> None:
+        """Drain the pipeline and close.  Idempotent."""
+        if self._state == "open" and self.config.needs_worker:
+            self._engine._finish_async()
         self._state = "closed"
 
     # -- membership (the slot pool) ------------------------------------------
@@ -198,6 +325,9 @@ class MonitorSession:
                 f"slot pool full ({self._engine.batch} slots): detach a "
                 "stream first or build a larger engine")
         self._engine._attach_slot(slot)
+        if self._policy is not None:
+            # a fresh tenant gets a cold controller
+            self._policy.reset_stream(slot)
         self._slots[slot] = stream_id
         return slot
 
@@ -255,7 +385,19 @@ class MonitorSession:
         if self.config.mode == "scan":
             raise RuntimeError("scan sessions are offline: use run(token_stream)")
         self._ensure_open()
-        return self._narrow(self._engine._step(self._expand(tokens)))
+        full = self._expand(tokens)
+        eng = self._engine
+        if self._policy is not None:
+            eng._thr_eff = np.asarray(self._policy.step_thresholds(),
+                                      np.float32)
+        if self.config.needs_worker:
+            r = eng._step_async(full)
+        else:
+            r = eng._step(full)
+        if self._policy is not None:
+            self._policy.update(r["u"], r["fhat"], r["triggered"],
+                                eng.active.copy(), eng.comms)
+        return self._narrow(r)
 
     def stream(self, token_iter: Iterable) -> Iterator[Dict[str, Any]]:
         """One result dict per step of ``token_iter``; membership may
@@ -265,23 +407,70 @@ class MonitorSession:
 
     def run(self, token_stream) -> Dict[str, Any]:
         """Serve a whole stream (n_attached, S) and return stacked traces
-        (n_attached, S) and the comms report."""
+        (n_attached, S) and the comms report.  A worker-backed session
+        drains its pipeline's tail and closes when the stream ends, so the
+        report covers the whole session."""
         self._ensure_open()
         if self.config.mode == "scan":
             if not self._full_pool():
                 raise RuntimeError("scan mode requires the full slot pool")
+            if self._policy is not None:
+                # one offline pass: the policy's current thresholds apply
+                # statically (no per-step feedback)
+                self._engine._thr_eff = np.asarray(
+                    self._policy.step_thresholds(), np.float32)
             return self._engine._run_scan(token_stream)
         token_stream = np.asarray(token_stream)
         us, fhats, trigs = [], [], []
-        for t in range(token_stream.shape[1]):
-            r = self.step(token_stream[:, t])
-            us.append(r["u"])
-            fhats.append(r["fhat"])
-            trigs.append(r["triggered"])
+        try:
+            for t in range(token_stream.shape[1]):
+                r = self.step(token_stream[:, t])
+                us.append(r["u"])
+                fhats.append(r["fhat"])
+                trigs.append(r["triggered"])
+        finally:
+            if self.config.needs_worker:
+                self.close()
         return {"u": np.stack(us, 1), "fhat": np.stack(fhats, 1),
                 "triggered": np.stack(trigs, 1), "streams": self.streams,
                 "comms": self.report()}
 
     def report(self) -> Dict[str, Any]:
-        """The engine's communication report (see ``CommsMeter``)."""
+        """The engine's communication and overlap report (see
+        ``CommsMeter``)."""
         return self._engine.comms.report()
+
+    # -- observability --------------------------------------------------------
+    @property
+    def tracer(self):
+        """The session's span tracer (``SessionConfig(trace=True)``), or
+        ``None`` when tracing is off."""
+        return self._engine._tracer
+
+    def export_trace(self, path: str) -> int:
+        """Write the session's spans as Chrome trace-event / Perfetto
+        JSON; returns the span count.  Requires ``trace=True``."""
+        tr = self._engine._tracer
+        if tr is None:
+            raise RuntimeError("tracing is off: open the session with "
+                               "SessionConfig(trace=True)")
+        return tr.export(path)
+
+    def metrics(self) -> Dict[str, Any]:
+        """One flat snapshot: the engine's registry, the flattened
+        ``CommsMeter`` report under ``comms/...`` and, when tracing, the
+        tracer's ring stats under ``trace/...``."""
+        from repro_torch.observability import flatten
+        snap = self._engine.metrics.snapshot()
+        snap.update(flatten(self._engine.comms.report(), "comms"))
+        tr = self._engine._tracer
+        if tr is not None:
+            snap.update(flatten(tr.stats(), "trace"))
+        return snap
+
+    def arm_recompile_guard(self, *, track_global: bool = True,
+                            warm_only: bool = False):
+        """The reference's guard over its jitted paths.  The port runs
+        eagerly; its counterpart is a graph-capture guard once the serve
+        step is captured in CUDA graphs (ROADMAP queue 2)."""
+        raise _later("the recompile guard", "8 (mesh + analysis)")

@@ -1,5 +1,6 @@
 """Collaborative monitor -> trigger -> correct serving, batched over
-independent streams (``serving/collaborative.py``, sync and scan paths).
+independent streams (``serving/collaborative.py``: sync, async and scan
+paths).
 
   device: the edge tower decodes every token of every stream and scores
           u_t with the truncated-basis head (paper Eq. 8); stream i
@@ -18,13 +19,26 @@ stream i ships only stream i's backlog and charges only stream i in the
   * ``_step`` (mode="sync"): the online protocol, one token per stream
     per step, a blocking catch-up on triggers, and the fused
     ``monitor_combine`` kernel for fhat.
+  * ``_step_async`` (mode="async"): the pipelined online path.  A trigger
+    hands the same masked catch-up to a worker (``serving/async_rpc.py``:
+    inproc, a CUDA side stream, a thread, a mock remote) that owns the
+    server cache for the session, and the edge loop keeps decoding;
+    corrections merge 1..``max_staleness`` steps late while u and the
+    trigger decision stay exact.  ``max_staleness=0`` is bit-identical to
+    ``_step``.
   * ``_run_scan`` (mode="scan"): offline trace evaluation, edge and server
     in lockstep over the whole stream, corrections routed through
     ``core.gating.compact_correction`` with static capacity.  It does not
     touch the engine's protocol state.
+
+``self.metrics`` (a ``MetricsRegistry``) is always on.  The span tracer
+is off (``None``) unless a session installs one
+(``SessionConfig(trace=True)``); each instrumentation site is then one
+``is not None`` check.  The span names are the reference's.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,6 +50,8 @@ from repro_torch.core.gating import CommsMeter, compact_correction
 from repro_torch.kernels import ops
 from repro_torch.models import api as model_api
 from repro_torch.nn.module import linear, resolve_device
+from repro_torch.observability import MetricsRegistry
+from repro_torch.serving.async_rpc import Backlog
 from repro_torch.serving.engine import ServeEngine, step_at
 
 # payload: one token id (4B) + edge score (4B) per shipped token
@@ -74,15 +90,21 @@ class CollaborativeEngine:
                                     device=self.device)
         self.comms = CommsMeter(bytes_per_request=TOKEN_BYTES, n_streams=batch)
         # per-stream trigger points: stream i triggers when u_i > _thr_eff[i]
+        # (a policy rewrites the vector between steps; serving/policy.py)
         self._thr_eff = np.full(batch, self._calibrated_point(), np.float32)
+        self.metrics = MetricsRegistry()
+        self._tracer = None
+        self._dispatcher = None
+        self._worker = None
 
     def _calibrated_point(self) -> np.float32:
         return np.float32(self.m.threshold - self.m.trigger_margin)
 
-    def session(self, config=None, *, streams=None):
-        """Open a ``MonitorSession`` over this engine."""
+    def session(self, config=None, *, streams=None, worker=None):
+        """Open a ``MonitorSession`` over this engine (``worker``: a
+        ready-made ``async_rpc`` worker for an async session)."""
         from repro_torch.serving.api import MonitorSession
-        return MonitorSession(self, config, streams=streams)
+        return MonitorSession(self, config, streams=streams, worker=worker)
 
     # -- heads ---------------------------------------------------------------
     # Both heads end in an elementwise product and a reduction over the
@@ -114,36 +136,44 @@ class CollaborativeEngine:
         self._history[rows, idx] = torch.where(act, tokens_t,
                                                self._history[rows, idx])
 
-    def _catchup(self, params, server_pos: np.ndarray, t, triggered: np.ndarray,
-                 u: torch.Tensor):
-        """Masked per-element server catch-up + fused correction.
-
-        Each triggered stream i replays history[i, server_pos[i]:t_i+1]
-        into the server cache at its own positions; untriggered rows keep
-        their cache bit-unchanged.  Rounds run to the longest triggered
-        backlog, and a stream that has finished is masked out of later
-        rounds.  ``t``: scalar or (B,) end positions.  Returns (v, fhat).
-        """
+    def _backlog(self, server_pos: np.ndarray, t,
+                 triggered: np.ndarray) -> Backlog:
+        """The catch-up's inputs for the triggered streams, on the device
+        and the current stream: each triggered stream i replays history[i,
+        server_pos[i]:t_i+1].  Rounds run to the longest triggered backlog;
+        a stream that has finished is masked out of later rounds.  ``t``:
+        scalar or (B,) end positions.  The tokens are gathered now, so a
+        worker never reads the history, which later steps overwrite."""
         B = self.batch
         t_vec = np.broadcast_to(np.asarray(t, np.int64), (B,))
         n_rounds = int(np.max(np.where(triggered, t_vec + 1 - server_pos, 0)))
         # every round's positions, masks and tokens in one transfer/gather
         pos = server_pos[None, :] + np.arange(n_rounds)[:, None]     # (R, B)
         act = triggered[None, :] & (pos <= t_vec[None, :])
-        pos_d = torch.as_tensor(pos.astype(np.int32), device=self.device)
-        act_d = torch.as_tensor(act, device=self.device)
         idx = torch.as_tensor(np.clip(pos, 0, self.max_len - 1).T,
                               device=self.device)
-        tok = torch.gather(self._history, 1, idx).T                  # (R, B)
+        return Backlog(
+            tokens=torch.gather(self._history, 1, idx).T,            # (R, B)
+            pos=torch.as_tensor(pos.astype(np.int32), device=self.device),
+            active=torch.as_tensor(act, device=self.device),
+            triggered=torch.as_tensor(triggered, device=self.device))
+
+    def _catchup_apply(self, params, cache, backlog: Backlog,
+                       u: torch.Tensor):
+        """Masked per-element server catch-up + fused correction on
+        ``cache`` (written in place; untriggered rows stay bit-unchanged).
+        Returns (v, fhat).  An async session's worker runs this on the
+        cache it owns; it reads nothing of the engine's live state."""
+        B = self.batch
         last_hidden = torch.zeros((B, self.cfg.d_model), dtype=torch.float32,
                                   device=self.device)
-        for r in range(n_rounds):
-            _, hidden = step_at(params.server, self.cfg, self.server.cache,
-                                tok[r], pos_d[r], act_d[r], with_logits=False)
-            last_hidden = torch.where(act_d[r][:, None], hidden.float(),
-                                      last_hidden)
+        for r in range(backlog.tokens.shape[0]):
+            _, hidden = step_at(params.server, self.cfg, cache,
+                                backlog.tokens[r], backlog.pos[r],
+                                backlog.active[r], with_logits=False)
+            last_hidden = torch.where(backlog.active[r][:, None],
+                                      hidden.float(), last_hidden)
         v = self._v_head(params, last_hidden)
-        trig_d = torch.as_tensor(triggered, device=self.device)
         if self.m.sigma == "sigmoid":
             # fused combine: fhat, trigger mask and safety counters in one
             # pass over the batch (the Hopper kernel on a CUDA tensor)
@@ -152,18 +182,29 @@ class CollaborativeEngine:
                 margin=self.m.trigger_margin)
         else:
             fhat_all = u - self.m.s * deco.sigma(v, self.m.sigma)
-        return v, torch.where(trig_d, fhat_all, u)
+        return v, torch.where(backlog.triggered, fhat_all, u)
+
+    def _catchup(self, params, cache, server_pos: np.ndarray, t,
+                 triggered: np.ndarray, u: torch.Tensor):
+        """The catch-up of ``_backlog`` and ``_catchup_apply`` on ``cache``,
+        back to back on the current stream.  Returns (v, fhat)."""
+        return self._catchup_apply(params, cache,
+                                   self._backlog(server_pos, t, triggered), u)
 
     def _monitor_prologue(self, tokens_t):
-        """The edge half of one step: record each active slot's token at
-        its position, decode the edge tower (one call, each row at its own
-        position), score u and decide the trigger.  Inactive slots report
-        u = 0 and never trigger."""
+        """The edge half of one step, shared by ``_step`` and
+        ``_step_async`` so the two stay bit-identical by construction:
+        record each active slot's token at its position, decode the edge
+        tower (one call, each row at its own position), score u and decide
+        the trigger.  Touches no server state.  Inactive slots report u = 0
+        and never trigger."""
         pos, active = self.edge_pos, self.active
         if not active.any():
             raise ValueError("no attached streams (empty slot pool)")
         if (pos[active] >= self.max_len).any():
             raise ValueError(f"stream longer than max_len={self.max_len}")
+        tr = self._tracer
+        t0 = tr.clock() if tr is not None else 0.0
         tokens_t = torch.as_tensor(np.asarray(tokens_t),
                                    device=self.device).long()
         self._record_at(tokens_t, pos, active)
@@ -174,8 +215,15 @@ class CollaborativeEngine:
         u = self._u_head(self.params, hidden)
         if not active.all():
             u = torch.where(act_d, u, torch.zeros_like(u))
+        if tr is not None:
+            tr.done("edge.decode", "edge", t0, step=self.t)
+            t1 = tr.clock()
         u_np = u.cpu().numpy()  # the step's one host sync
+        # per-stream thresholds (a policy's, or the calibrated point)
         triggered = (u_np > self._thr_eff) & active
+        if tr is not None:
+            tr.done("edge.trigger", "edge", t1, step=self.t,
+                    n_triggered=int(triggered.sum()))
         return u, u_np, triggered
 
     @torch.inference_mode()
@@ -187,9 +235,15 @@ class CollaborativeEngine:
         t_vec = self.edge_pos.copy()  # per-slot time before this step
         u, u_np, triggered = self._monitor_prologue(tokens_t)
         if triggered.any():
-            _, fhat_d = self._catchup(self.params, self.server_pos, t_vec,
-                                      triggered, u)
+            tr = self._tracer
+            t0 = tr.clock() if tr is not None else 0.0
+            _, fhat_d = self._catchup(self.params, self.server.cache,
+                                      self.server_pos, t_vec, triggered, u)
             fhat = fhat_d.cpu().numpy()
+            if tr is not None:
+                # the sync path blocks on the server here
+                tr.done("edge.catchup", "edge", t0, step=self.t,
+                        n_triggered=int(triggered.sum()))
             shipped = np.where(triggered, t_vec + 1 - self.server_pos, 0)
             self.comms.update_per_stream(shipped, active.astype(np.int64))
             self.server_pos = np.where(triggered, t_vec + 1, self.server_pos)
@@ -202,24 +256,150 @@ class CollaborativeEngine:
         self.t += 1
         return {"u": u_np, "fhat": fhat, "triggered": triggered}
 
+    # -- async pipelined online path -----------------------------------------
+    def _start_async(self, *, transport: str = "stream",
+                     max_staleness: int = 1,
+                     latency_s: Optional[float] = None,
+                     worker=None) -> None:
+        """Open an async session: hand the server cache to a worker and set
+        up the dispatch/merge layer.  ``transport``: inproc | stream |
+        thread | mock_remote (``serving/async_rpc.py``); ``max_staleness``:
+        0 is the strict synchronous boundary (bit-identical to ``_step``),
+        k >= 1 lets a reply land 1..k steps after its trigger, blocking
+        the edge loop only at k; ``latency_s``: a simulated round trip
+        (stream, thread, mock_remote; None keeps the transport's
+        default)."""
+        from repro_torch.serving import async_rpc
+        if self._dispatcher is not None:
+            raise RuntimeError("async session already open")
+        if worker is None:
+            worker = async_rpc.make_worker(transport, self._catchup_apply,
+                                           self.params, self.server.cache,
+                                           latency_s=latency_s)
+        self._worker = worker
+        self._dispatcher = async_rpc.Dispatcher(
+            worker, max_staleness=max_staleness, comms=self.comms,
+            tracer=self._tracer)
+        # what has been shipped (dispatched) per stream; merges move
+        # ``server_pos`` (what the protocol state reflects) up to this
+        self._dispatch_pos = self.server_pos.copy()
+
+    @torch.inference_mode()
+    def _step_async(self, tokens_t) -> Dict[str, np.ndarray]:
+        """One pipelined monitoring step: ``_step``'s monitor semantics (u
+        and the trigger decision never wait on the server); corrections
+        from earlier triggers merge into this step's fhat."""
+        if self._dispatcher is None:
+            raise RuntimeError("no open async session (use MonitorSession)")
+        m, B = self.m, self.batch
+        active = self.active.copy()
+        t_vec = self.edge_pos.copy()
+        u, u_np, triggered = self._monitor_prologue(tokens_t)
+        # dispatch first, so the strict boundary (max_staleness=0) merges
+        # this step's own reply below
+        tr = self._tracer
+        if triggered.any():
+            t0 = tr.clock() if tr is not None else 0.0
+            shipped = np.where(triggered, t_vec + 1 - self._dispatch_pos, 0)
+            # one request per same-position cohort, each with a scalar-t
+            # backlog, as the reference ships them (a uniform pool is one
+            # request)
+            for p in sorted(set(t_vec[triggered].tolist())):
+                mask_p = triggered & (t_vec == p)
+                self._dispatcher.dispatch(
+                    t=int(p), triggered=mask_p,
+                    server_pos=self._dispatch_pos,
+                    backlog=self._backlog(self._dispatch_pos, int(p), mask_p),
+                    u=u, step_t=self.t)
+            self.comms.update_per_stream(shipped, active.astype(np.int64))
+            self._dispatch_pos = np.where(triggered, t_vec + 1,
+                                          self._dispatch_pos)
+            if tr is not None:
+                tr.done("edge.dispatch", "edge", t0, step=self.t,
+                        n_triggered=int(triggered.sum()))
+        else:
+            self.comms.update_per_stream(np.zeros(B, np.int64),
+                                         active.astype(np.int64))
+        fhat = u_np.copy()
+        t_merge = tr.clock() if tr is not None else 0.0
+        n_merged = 0
+        for r in self._dispatcher.collect(self.t):
+            # membership changes drain first, so a reply's mask names only
+            # attached slots; the `live` gate is defensive
+            live = r.triggered & self.active
+            if r.step_t == self.t:
+                # same-step merge (strict boundary): the fused fhat from
+                # this step's u, bit-identical to ``_step``
+                fhat = np.where(live, r.fhat, fhat)
+            else:
+                # late merge: the stale corrector applied to today's u.
+                # corr >= 0, so fhat <= u: staleness can only keep a
+                # warning raised, never suppress one
+                corr = (m.s * deco.sigma(torch.from_numpy(r.v), m.sigma)
+                        ).numpy()
+                fhat = np.where(live, u_np - corr, fhat)
+            self.server_pos = np.where(live, r.t + 1, self.server_pos)
+            n_merged += 1
+        if tr is not None and n_merged:
+            tr.done("edge.merge", "edge", t_merge, step=self.t,
+                    n_replies=n_merged)
+        self.edge_pos = t_vec + active
+        self.t += 1
+        return {"u": u_np, "fhat": fhat, "triggered": triggered}
+
+    def _drain_async(self) -> None:
+        """Settle every in-flight request (their replies update protocol
+        state only) and order the engine's stream after the worker's.
+        Required before any slot-pool membership change: a reply must
+        never land on a slot re-leased since its dispatch."""
+        for r in self._dispatcher.drain():
+            live = r.triggered & self.active
+            self.server_pos = np.where(live, r.t + 1, self.server_pos)
+        self._worker.settle()
+
+    def _finish_async(self) -> None:
+        """Drain the pipeline's tail, re-adopt the worker's server cache
+        (the engine's stream already waits on the worker's) and close the
+        async session."""
+        if self._dispatcher is None:
+            return
+        self._drain_async()
+        self.server.cache = self._worker.cache
+        self.server.pos = int(self.server_pos.max())
+        self._worker.close()
+        self._dispatcher = self._worker = None
+
     # -- slot pool (driven by MonitorSession.attach/detach) -------------------
     def _attach_slot(self, slot: int) -> None:
         """Admit a new stream into ``slot``: every per-slot state the
         previous tenant left (edge and server cache rows, token history,
-        positions, threshold) is reset, as in a freshly built engine."""
+        positions, threshold) is reset, as in a freshly built engine.  In
+        async mode the pipeline drains first, and the rows are reset in
+        the cache the worker owns."""
         rows = np.zeros(self.batch, bool)
         rows[slot] = True
+        if self._dispatcher is not None:
+            self._drain_async()
+            self.server.zero_rows(rows, self._worker.cache)
+            self._dispatch_pos[slot] = 0
+        else:
+            self.server.zero_rows(rows)
         self.edge.zero_rows(rows)
-        self.server.zero_rows(rows)
         self._history[slot] = 0
         self.server_pos[slot] = 0
         self.edge_pos[slot] = 0
+        # a fresh tenant starts at the calibrated operating point: a
+        # threshold a policy raised for the previous tenant must not leak
         self._thr_eff[slot] = self._calibrated_point()
         self.active[slot] = True
 
     def _detach_slot(self, slot: int) -> None:
         """Retire the stream in ``slot``: masked out of decode, trigger and
-        comms accounting from the next step on (attach zeroes on reuse)."""
+        comms accounting from the next step on (attach zeroes on reuse).
+        In async mode the pipeline drains first, so no in-flight reply can
+        land on the freed slot."""
+        if self._dispatcher is not None:
+            self._drain_async()
         self.active[slot] = False
 
     # -- offline scan path ---------------------------------------------------
@@ -261,11 +441,15 @@ class CollaborativeEngine:
         B, S = tokens.shape
         if S > self.max_len:
             raise ValueError(f"stream longer than max_len={self.max_len}")
+        tr = self._tracer
+        t0 = tr.clock() if tr is not None else 0.0
         thr = (self._thr_eff if B == self.batch
                else np.full(B, self._calibrated_point(), np.float32))
         u, fhat, trig, served = self._scan(
             self.params, tokens, torch.as_tensor(thr, device=self.device))
         trig_np = trig.cpu().numpy()
+        if tr is not None:
+            tr.done("scan.run", "edge", t0, batch=int(B), steps=int(S))
         comms = CommsMeter(bytes_per_request=TOKEN_BYTES, n_streams=B)
         any_trig = trig_np.any(axis=1)
         last = np.where(any_trig, S - 1 - np.argmax(trig_np[:, ::-1], axis=1), -1)
@@ -274,3 +458,23 @@ class CollaborativeEngine:
         return {"u": u.cpu().numpy(), "fhat": fhat.cpu().numpy(),
                 "triggered": trig_np, "served": served.cpu().numpy(),
                 "comms": comms.report()}
+
+    # -- the reference engine's shim ------------------------------------------
+    def run_async(self, token_stream, *, transport: str = "stream",
+                  max_staleness: int = 1, latency_s: Optional[float] = None,
+                  worker=None) -> Dict[str, object]:
+        """Deprecated, as in the reference: a thin shim over
+        ``MonitorSession`` in async mode, kept so that code written
+        against the reference's engine runs unchanged.  Serves the whole
+        stream and closes the session."""
+        from repro_torch.serving.api import SessionConfig, TransportSpec
+        warnings.warn(
+            "CollaborativeEngine.run_async() is deprecated: open a "
+            "MonitorSession instead -- engine.session(SessionConfig("
+            "mode='async', ...)).run(stream)", DeprecationWarning,
+            stacklevel=2)
+        spec = TransportSpec(transport, latency_s=latency_s)
+        config = SessionConfig(mode="async", transport=spec,
+                               max_staleness=max_staleness)
+        with self.session(config, worker=worker) as s:
+            return s.run(token_stream)

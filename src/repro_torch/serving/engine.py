@@ -133,6 +133,9 @@ class ServeEngine:
         return step_at(self.params, self.cfg, self.cache, tokens_t, pos,
                        active, with_logits=with_logits)
 
-    def zero_rows(self, rows) -> None:
-        """Reset the selected rows (``rows``: (B,) bool) to bit-cold zeros."""
-        zero_cache_rows(self.cache, torch.as_tensor(rows, device=self.device))
+    def zero_rows(self, rows, cache=None) -> None:
+        """Reset the selected rows (``rows``: (B,) bool) of ``cache`` (the
+        engine's own when None) to bit-cold zeros.  An async session's
+        worker owns the server cache, and the engine passes it here."""
+        zero_cache_rows(self.cache if cache is None else cache,
+                        torch.as_tensor(rows, device=self.device))

@@ -6,11 +6,12 @@ installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import copy
+import time
+
 import numpy as np
 import pytest
 import torch
-
-import copy
 
 from repro_torch import bridge, kernels
 from repro_torch.configs import paper_synthetic, registry
@@ -508,3 +509,156 @@ def test_train_paper_on_card_matches_cpu(cuda, u_mode):
                          u_mode=u_mode, steps=50, lr=lr, device=cuda, **kw)
     out = res["out"]
     assert out["u"].is_cuda and (out["fhat"] <= out["u"]).all()
+
+
+# -- async serving on the card: the side stream and the worker thread ----------
+
+def _async_case(cuda, arch="granite-8b", B=4, S=24):
+    """A bf16 model on the card, its stream and a mixed-trigger operating
+    point calibrated from a scan probe."""
+    cfg = (paper_synthetic.SERVING if arch == "paper-synthetic"
+           else registry.get_smoke(arch)).replace(dtype="bfloat16")
+    model = init_collab_lm(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    probe = MonitorSession.open(model, cfg, batch=B, max_len=32,
+                                config=SessionConfig(mode="scan")).run(toks)
+    conf = dict(threshold=float(np.quantile(probe["u"], 0.8)),
+                trigger_margin=0.0)
+    return cfg, model, toks, conf
+
+
+def _serve(model, cfg, toks, conf, **kw):
+    sess = MonitorSession.open(model, cfg, batch=toks.shape[0], max_len=32,
+                               config=SessionConfig(**conf, **kw))
+    return sess.run(toks), sess.engine
+
+
+def sleep_cycles(cuda, seconds: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that keep the card busy for about
+    ``seconds``, measured with CUDA events."""
+    n = 10**7
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(n)
+    end.record()
+    end.synchronize()
+    return int(n * seconds * 1e3 / start.elapsed_time(end))
+
+
+def _caches_equal(a, b):
+    return all(torch.equal(x, y) for name in a for x, y in zip(a[name],
+                                                                b[name]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-7b"])
+@pytest.mark.parametrize("transport", ["stream", "thread"])
+def test_async_workers_match_sync_on_card(cuda, arch, transport):
+    """A worker on a stream of its own against the sync session on the
+    default stream: at max_staleness=0 u, fhat, triggers, per-stream bytes,
+    server_pos and the final server cache bitwise; at 2 u and triggers
+    bitwise, fhat <= u, and the same final cache and server_pos."""
+    cfg, model, toks, conf = _async_case(cuda, arch)
+    r1, e1 = _serve(model, cfg, toks, conf)
+    assert 0 < r1["triggered"].mean() < 1
+    for k in (0, 2):
+        r, e = _serve(model, cfg, toks, conf, mode="async",
+                      transport=transport, max_staleness=k)
+        keys = ("u", "fhat", "triggered") if k == 0 else ("u", "triggered")
+        for key in keys:
+            np.testing.assert_array_equal(r[key], r1[key], err_msg=key)
+        assert (r["fhat"] <= r["u"]).all()
+        np.testing.assert_array_equal(r["comms"]["per_stream"]["bytes_sent"],
+                                      r1["comms"]["per_stream"]["bytes_sent"])
+        assert r["comms"]["async"]["inflight_now"] == 0
+        np.testing.assert_array_equal(e.server_pos, e1.server_pos)
+        assert _caches_equal(e.server.cache, e1.server.cache), (transport, k)
+
+
+@pytest.mark.cuda
+def test_thread_worker_runs_on_its_own_stream(cuda):
+    """The worker thread computes on its own (non-default) stream, on the
+    engine's device, in inference mode."""
+    from repro_torch.serving.async_rpc import ThreadWorker
+    cfg, model, toks, conf = _async_case(cuda)
+    seen = []
+    eng = MonitorSession.open(model, cfg, batch=4, max_len=32,
+                              config=SessionConfig(**conf)).engine
+
+    def catchup(*a):
+        seen.append((torch.cuda.current_stream(cuda),
+                     torch.is_inference_mode_enabled(),
+                     torch.cuda.current_device()))
+        return eng._catchup_apply(*a)
+    worker = ThreadWorker(catchup, eng.params, eng.server.cache)
+    eng.session(SessionConfig(mode="async", transport="thread",
+                              max_staleness=2), worker=worker).run(toks)
+    assert seen
+    for stream, inference, device in seen:
+        assert stream == worker.stream
+        assert stream != torch.cuda.default_stream(cuda)
+        assert inference and device == eng.device.index
+
+
+@pytest.mark.cuda
+def test_stream_dispatch_does_not_block_on_the_card(cuda):
+    """After a few warm steps, a dispatch queued behind 0.5 s of device
+    work on the worker's stream returns at once: nothing in dispatch
+    waits for the side stream (no synchronise, no pageable copy).  The
+    SMOKE catch-up's launches fit in the stream's launch queue; a longer
+    one would block in cudaLaunchKernel once the queue is full."""
+    from repro_torch.serving.async_rpc import StreamWorker
+    cfg, model, toks, conf = _async_case(cuda)
+    eng = MonitorSession.open(model, cfg, batch=4, max_len=32,
+                              config=SessionConfig(**conf)).engine
+    eng._u_head = lambda p, h: torch.ones(h.shape[0], device=cuda)
+    worker = StreamWorker(eng._catchup_apply, eng.params, eng.server.cache)
+    sess = eng.session(SessionConfig(mode="async", transport="stream",
+                                     max_staleness=2), worker=worker)
+    for t in range(4):                     # every stream triggers each step
+        sess.step(toks[:, t])
+    torch.cuda.synchronize()
+    with torch.cuda.stream(worker.stream):
+        torch.cuda._sleep(sleep_cycles(cuda, 0.5))
+    t0 = time.perf_counter()
+    sess.step(toks[:, 4])                  # triggers: dispatches behind it
+    step_s = time.perf_counter() - t0
+    last = worker.timings[-1]
+    assert last.pending_at_return
+    assert last.host_s < 0.1 and step_s < 0.25, (last.host_s, step_s)
+    sess.close()
+    assert last.done.query()
+    assert last.device_ms() > 0
+
+
+@pytest.mark.cuda
+def test_launch_counts_exact_with_two_issuing_threads(cuda):
+    """Two threads launch monitor_combine on their own streams: the count
+    is exact; and a thread-worker session launches what the sync session
+    does (the same catch-up rounds and combines)."""
+    import threading
+    u = torch.rand(8, device=cuda)
+    calls = 500
+
+    def launch():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            for _ in range(calls):
+                monitor_combine_cuda(u, u, u, s=1.0)
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    threads = [threading.Thread(target=launch) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert kernels.launch_counts()["monitor_combine"] == 2 * calls
+    cfg, model, toks, conf = _async_case(cuda)
+    counts = []
+    for kw in ({}, dict(mode="async", transport="thread", max_staleness=2)):
+        kernels.reset_launch_counts()
+        _serve(model, cfg, toks, conf, **kw)
+        counts.append(kernels.launch_counts())
+    assert counts[0] == counts[1]
+    assert counts[0]["decode_attention"] > 0
+    assert counts[0]["monitor_combine"] > 0

@@ -20,6 +20,10 @@ import repro_torch.core.safety, repro_torch.core.theory
 import repro_torch.data.synthetic, repro_torch.training.checkpoint
 import repro_torch.configs.registry, repro_torch.configs.paper_financial
 import repro_torch.bench.paper, repro_torch.serving.engine
+import repro_torch.serving.async_rpc, repro_torch.serving.policy
+import repro_torch.serving.tracker, repro_torch.observability
+import repro_torch.observability.trace, repro_torch.observability.metrics
+import repro_torch.observability.report
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)
@@ -111,5 +115,28 @@ def test_hybrid_constructors_default_to_the_card(monkeypatch, entry):
                 state=SMOKE.ssm_state, conv_k=SMOKE.ssm_conv, n_layers=1),
             "collab_from_numpy": lambda: bridge.collab_from_numpy(
                 {}, SMOKE, None)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+@pytest.mark.parametrize("entry", ["async_session", "cascade"])
+def test_async_session_and_cascade_default_to_the_card(monkeypatch, entry):
+    """An async session, and each tier a CascadeSession is built over,
+    read device=None as CUDA: without a card they raise, and no worker
+    falls back to the host."""
+    from repro_torch.configs.paper_synthetic import SERVING
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.serving import (CascadeSession, MonitorSession,
+                                     SessionConfig)
+    model = init_collab_lm(SERVING, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = SessionConfig(mode="async", transport="thread", max_staleness=2)
+
+    def tier():
+        return MonitorSession.open(model, SERVING, batch=2, max_len=8,
+                                   config=config)
+    call = {"async_session": tier,
+            "cascade": lambda: CascadeSession(tier(), tier(),
+                                              escalate_above=0.0)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

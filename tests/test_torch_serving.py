@@ -227,11 +227,22 @@ def test_churn_survivors_exact_and_attach_bit_cold():
 
 
 def test_session_config_refuses_unported_paths():
-    for kw in (dict(mode="async"), dict(transport="wire:/tmp/x.sock"),
-               dict(mesh="data:8"), dict(policy=object()), dict(trace=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What the port does not serve yet raises, naming its ROADMAP item:
+    the wire, shm and fleet transports (items 5-6), mesh sharding and the
+    recompile guard (item 8)."""
+    for kw, item in ((dict(transport="wire:/tmp/x.sock"), "item 5"),
+                     (dict(mode="async", transport="wire:host:5555"),
+                      "item 5"),
+                     (dict(mode="async", transport="shm:/tmp/x.sock"),
+                      "item 6"),
+                     (dict(transport="fleet:/tmp/router.sock"), "item 6"),
+                     (dict(mesh="data:8"), "item 8")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             SessionConfig(**kw)
     tcfg, _, model = _granite()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+        MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu"
+                            ).arm_recompile_guard()
     sess = MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu",
                                config=SessionConfig(mode="scan"))
     with pytest.raises(RuntimeError, match="offline"):
