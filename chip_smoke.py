@@ -70,15 +70,32 @@ Phases, each printing its own lines:
               u bitwise, fhat <= u), FixedPolicy bitwise no policy; a traced
               sync and async run (bitwise untraced, the Chrome export
               validates, the span breakdown); the three-rung cascade over
-              two engines.  zamba2-7b (81 layers, 32 of the 64 steps):
+              two engines.  zamba2-7b (81 layers, 16 of the 64 steps):
               one stream run at max_staleness 2 with the same checks.
               Per run: tokens/s, ms/step, stall, overlap ratio, peak
               memory.
+9. serve-wire -- the serve cell (granite-8b, 36 layers) with the server
+              half in a second process: a CorrectionServer at 16 slots
+              started with multiprocessing's spawn, its weights from the
+              same seed (a digest of them must match the client's).
+              Against the phase's own sync runs (one before, one after):
+              the wire transport at max_staleness 0 and 2, and two
+              clients on one server interleaved at k = 2, one triggering
+              every step; gates: u, triggers, server_pos and per-stream
+              bytes equal to sync (the quiet client's to its run alone),
+              fhat <= u, at k = 0 fhat within 2e-2 of sync, nothing in
+              flight at close, both serve kernels launched by the server.
+              Per run: tokens/s, ms/step, the RTT and its serialize /
+              socket / queue / compute breakdown, wire bytes beside the
+              modelled bytes, the server's replays and coalescing, each
+              process's peak memory, the card's busy share (nvidia-smi's
+              utilization.gpu).  Then ``python -m repro_torch.launch.server``
+              itself at SMOKE size and a wire session against it.
 
 --profile adds torch.profiler breakdowns of one sync and one scan run, of
 one train step per model, of a train_paper step and of a generate step
 per model, and the CUDA stream ids of the serve kernels in a short async
-stream run per model (the phases run in the order 1-4, 8, 5-7).  Then
+stream run per model (the phases run in the order 1-4, 8, 9, 5-7).  Then
 one JSON line of the kernels, the
 card's name and power limit, and a last line {"ok": true, "device":
 {...}}.  Any failed check raises, so the script exits non-zero and
@@ -1581,10 +1598,10 @@ POLICY_TARGET = 0.05
 # the side-stream witnesses: the device work queued on the worker's stream
 # before a dispatch, and the profiled steps of the full-width session
 WITNESS_SLEEP_S, WITNESS_STEPS = 1.0, 8
-# zamba2's async run (and its own sync run) serves 32 of the serve cell's
+# zamba2's async run (and its own sync run) serves 16 of the serve cell's
 # 64 steps: a zamba2 sync step costs ~3x granite's, and chip_smoke keeps
-# within its time budget
-HYBRID_ASYNC_STEPS = 32
+# within its time budget with the serve-wire phase (32 steps before it)
+HYBRID_ASYNC_STEPS = 16
 
 
 def sleep_cycles(torch, seconds: float) -> int:
@@ -2016,6 +2033,452 @@ def _dev_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
+# ---------------------------------------------------------------- phase 9
+# the serve-wire cell: the serve cell's model and traffic with the server
+# half in a process of its own on the same card.  SERVER_SLOTS super-batch
+# rows hold two clients of BATCH streams; the launcher's own run is SMOKE
+# size (WIRE_SMOKE_BATCH streams, WIRE_SMOKE_STEPS steps)
+SERVER_SLOTS = 16
+WIRE_STALENESS = (0, 2)
+WIRE_SMOKE_BATCH, WIRE_SMOKE_STEPS = 4, 16
+SUN_PATH_MAX = 100  # a Unix socket's path must fit sockaddr_un (108 bytes)
+
+
+def socket_path(tmp: str):
+    """A Unix socket path in ``tmp``, or None (TCP on localhost) when the
+    temporary directory's path is too long for one."""
+    path = str(Path(tmp) / "s.sock")
+    return path if len(path.encode()) < SUN_PATH_MAX else None
+
+
+class AnyEvent:
+    """Set when any of ``events`` is: a ``stop`` for ``serve_forever``
+    that also returns when the client asks for a launch-count reset."""
+
+    def __init__(self, *events):
+        self.events = events
+
+    def is_set(self) -> bool:
+        return any(e.is_set() for e in self.events)
+
+
+def wire_server_child(cfg, device: str, seed: int, slots: int, max_len: int,
+                      uds, ready: str, stats: str, out: str, stop,
+                      reset) -> None:
+    """The serve-wire cell's correction server, in a process of its own
+    (started with multiprocessing's spawn: fork is wrong once CUDA is
+    initialised): ``cfg`` from the client's seed on ``device``, with the
+    kernels phase_build compiled, loaded from _build/.  Writes the ready
+    file (address and weights digest), a heartbeat every 0.1 s to
+    ``stats`` and, at exit, its launch counts, stats and peak device
+    memory to ``out``.  When ``reset`` is set (the client's warm-up is
+    over) it zeroes its launch counts and clears ``reset``, so the counts
+    cover the main path's runs only."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.launch.server import weights_digest, write_ready
+    from repro_torch.serving.server import CorrectionServer
+    from repro_torch.serving.tracker import JsonFileTracker
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    srv = CorrectionServer(cfg, model, slots=slots, max_len=max_len, uds=uds,
+                           device=dev, tracker=JsonFileTracker(stats),
+                           stats_interval_s=0.1)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    write_ready(ready, srv.address, weights_digest(model))
+    try:
+        while not stop.is_set():
+            srv.serve_forever(stop=AnyEvent(stop, reset))
+            if reset.is_set():
+                kernels.reset_launch_counts()
+                reset.clear()
+    finally:
+        peak = None
+        if on_card:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        with open(out, "w") as fh:
+            json.dump({"launches": kernels.launch_counts(),
+                       "stats": srv.stats_snapshot(), "peak_gib": peak}, fh)
+        srv.close()
+
+
+class BusySampler:
+    """The card's busy share while it runs: ``nvidia-smi``'s
+    ``utilization.gpu`` (the share of each sample period in which a kernel
+    of any process ran) every 100 ms.  ``mean`` is None when nvidia-smi
+    gives no samples."""
+
+    def __enter__(self):
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        try:
+            text, _ = self._proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            text, _ = self._proc.communicate(timeout=10)
+        vals = [float(x) for x in text.split() if x.strip().isdigit()]
+        self.mean = sum(vals) / len(vals) if vals else None
+        self.n = len(vals)
+
+    def text(self) -> str:
+        return ("not measured" if self.mean is None
+                else f"{self.mean:.1f}% ({self.n} samples)")
+
+
+def phase_wire(torch, dev, args, cfg) -> dict:
+    """serve-wire: ``cfg`` (granite-8b FULL, 36 layers), the serve cell's
+    traffic, with the correction server in a second process on the card
+    (SERVER_SLOTS slots).  Against the phase's own sync runs (one before,
+    one after): the wire transport at max_staleness 0 and 2, and two
+    clients on one server stepped interleaved at k = 2, one triggering
+    every step.  Then the launcher itself at SMOKE size.  Returns the
+    launch counts of both processes."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs.paper_synthetic import SERVING_TRIGGER_RATE
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.launch import server as launcher
+    from repro_torch.serving import MonitorSession, SessionConfig
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    from repro_torch.serving.tracker import read_stats
+    B, ML, S = BATCH, MAX_LEN, STEPS
+    label = f"[serve-wire] {cfg.name}"
+    tmp = tempfile.mkdtemp(prefix="wire_")
+    uds = socket_path(tmp)
+    ready, stats, out = (os.path.join(tmp, n)
+                         for n in ("ready", "stats.json", "server.json"))
+    ctx = multiprocessing.get_context("spawn")
+    stop, reset = ctx.Event(), ctx.Event()
+    child = ctx.Process(target=wire_server_child,
+                        args=(cfg, str(dev), args.seed, SERVER_SLOTS, ML, uds,
+                              ready, stats, out, stop, reset))
+    t_start = time.perf_counter()
+    child.start()
+    total = dict.fromkeys(SERVE_KERNELS, 0)
+    try:
+        # the client's model and threshold while the server starts
+        model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(
+            args.seed), dev)
+        toks = np.random.default_rng(args.seed).integers(
+            0, cfg.vocab_size, (B, S))
+        probe = MonitorSession.open(model, cfg, batch=B, max_len=ML,
+                                    device=dev,
+                                    config=SessionConfig(mode="scan")
+                                    ).run(toks)
+        thr = float(np.quantile(probe["u"], 1.0 - SERVING_TRIGGER_RATE))
+        cfg_thr = cfg.replace(monitor=cfg.monitor.__class__(
+            **{**cfg.monitor.__dict__, "threshold": thr,
+               "trigger_margin": 0.0}))
+        deadline = time.monotonic() + 600
+        while not os.path.exists(ready):
+            check(child.is_alive(), "the server process is alive")
+            check(time.monotonic() < deadline,
+                  "the server process listens within 600 s")
+            time.sleep(0.1)
+        address, digest = launcher.read_ready(ready)
+        mine = launcher.weights_digest(model)
+        check(digest == mine, f"weights digests equal (server {digest}, "
+              f"client {mine})")
+        print(f"{label}: server process ready in "
+              f"{time.perf_counter() - t_start:.1f} s at {address}, "
+              f"{SERVER_SLOTS} slots; weights digest {digest} on both sides")
+        wire = f"wire:{address}"
+
+        def server_stats() -> dict:
+            time.sleep(0.3)  # the heartbeat's period is 0.1 s
+            return read_stats(stats) or {}
+
+        def serve(config, *, steps=S, cfg_run=cfg_thr):
+            """One run from a fresh engine: (result, seconds, peak GiB, the
+            engine's final server_pos and RTT histograms, busy sampler,
+            server stats delta).  The engine itself is dropped, so no
+            run's peak memory holds an earlier run's caches."""
+            gc.collect()
+            eng = CollaborativeEngine(model, cfg_run, B, ML, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            s0 = server_stats()
+            with BusySampler() as busy:
+                t0 = time.perf_counter()
+                r = eng.session(config).run(toks[:, :steps])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            s1 = server_stats()
+            delta = {k: s1.get(k, 0) - s0.get(k, 0)
+                     for k in ("replays", "requests", "coalesced")}
+            n0, n1 = s0.get("replay_s_n", 0), s1.get("replay_s_n", 0)
+            delta["replay_ms"] = ((s1.get("replay_s_mean", 0) * n1
+                                   - s0.get("replay_s_mean", 0) * n0)
+                                  / max(n1 - n0, 1) * 1e3)
+            return (r, dt, torch.cuda.max_memory_allocated(dev) / 2**30,
+                    (eng.server_pos.copy(), eng.metrics.hists), busy, delta)
+
+        def line(name, r, dt, peak, busy, steps=S):
+            a = r["comms"].get("async", {})
+            return (f"{label} {name}: {B * steps / dt:.1f} tokens/s, "
+                    f"{dt / steps * 1e3:.2f} ms/step, stall "
+                    f"{a.get('stall_s', 0.0):.4f} s, overlap "
+                    f"{a.get('overlap_ratio', float('nan')):.3f}, requests "
+                    f"{a.get('requests', 0)} ({a.get('merged_late', 0)} "
+                    f"late); trigger rate {r['comms']['trigger_rate']:.3f}; "
+                    f"client peak device memory {peak:.2f} GiB; card busy "
+                    f"{busy.text()}")
+
+        def wire_lines(name, r, hists, delta):
+            w, rep = r["comms"]["wire"], r["comms"]
+
+            def mean_ms(h):
+                h = hists.get(h)
+                return (h.total / h.n * 1e3) if h is not None and h.n else \
+                    float("nan")
+            print(f"{label} {name} RTT: mean {w['rtt_mean_s'] * 1e3:.2f} ms, "
+                  f"max {w['rtt_max_s'] * 1e3:.2f} ms over {w['replies']} "
+                  f"replies; breakdown means serialize "
+                  f"{mean_ms('rtt_serialize_s'):.3f} / socket "
+                  f"{mean_ms('rtt_socket_s'):.3f} / queue "
+                  f"{mean_ms('rtt_queue_s'):.3f} / compute "
+                  f"{mean_ms('rtt_compute_s'):.3f} ms; wire tx "
+                  f"{w['tx_bytes']} B, rx {w['rx_bytes']} B beside the "
+                  f"CommsMeter's modelled bytes_sent {rep['bytes_sent']} B; "
+                  f"server: {delta['replays']} replays of "
+                  f"{delta['requests']} requests ({delta['coalesced']} "
+                  f"coalesced, coalesce_width "
+                  f"{delta['requests'] / max(delta['replays'], 1):.2f}), "
+                  f"replay {delta['replay_ms']:.2f} ms mean")
+
+        def check_wire(name, r, pos, ref, ref_pos, fhat_tol=None):
+            for key in ("u", "triggered"):
+                check(np.array_equal(r[key], ref[key]),
+                      f"{name}: {key} bitwise equal to sync")
+            check((r["fhat"] <= r["u"]).all(), f"{name}: fhat <= u")
+            check(np.array_equal(pos, ref_pos),
+                  f"{name}: server_pos equal to sync")
+            per, per1 = r["comms"]["per_stream"], ref["comms"]["per_stream"]
+            check(np.array_equal(per["bytes_sent"], per1["bytes_sent"]),
+                  f"{name}: per-stream bytes equal to sync")
+            check(r["comms"]["async"]["inflight_now"] == 0,
+                  f"{name}: nothing in flight at close")
+            if fhat_tol is not None:
+                d = float(np.abs(r["fhat"] - ref["fhat"]).max())
+                check(d <= fhat_tol, f"{name}: fhat within {fhat_tol} of "
+                      f"sync (max |diff| {d:.3e})")
+                print(f"{label} {name}: fhat max |diff| from sync {d:.3e} "
+                      f"({'bitwise' if d == 0.0 else 'not bitwise'}; the "
+                      f"server replays at batch {SERVER_SLOTS}, the sync "
+                      f"engine at {B})")
+
+        # warm-up: the server's first replay, the client's first launches
+        serve(SessionConfig(mode="async", transport=wire, max_staleness=2),
+              steps=4)
+        # count the main path's runs only, in both processes: the server
+        # clears ``reset`` once its counts are zero
+        kernels.reset_launch_counts()
+        reset.set()
+        deadline = time.monotonic() + 60
+        while reset.is_set():
+            check(child.is_alive(), "the server process is alive")
+            check(time.monotonic() < deadline,
+                  "the server process resets its launch counts within 60 s")
+            time.sleep(0.01)
+        sync, dt, peak, (sync_pos, _), busy, _ = serve(SessionConfig())
+        print(line("sync (this phase's own)", sync, dt, peak, busy))
+        check(0.0 < sync["triggered"].mean() < 1.0, "mixed triggers")
+        alone = None
+        for k in WIRE_STALENESS:
+            name = f"wire k={k}"
+            r, dt, peak, (pos, hists), busy, delta = serve(SessionConfig(
+                mode="async", transport=wire, max_staleness=k))
+            check_wire(name, r, pos, sync, sync_pos,
+                       fhat_tol=TOL["bfloat16"] if k == 0 else None)
+            print(line(name, r, dt, peak, busy))
+            wire_lines(name, r, hists, delta)
+            if k == 2:
+                alone = r
+        # two clients on one server, interleaved at k = 2; the loud one
+        # triggers every step
+        loud_cfg = cfg_thr.replace(monitor=cfg_thr.monitor.__class__(
+            **{**cfg_thr.monitor.__dict__, "threshold": -1e9}))
+        conf = SessionConfig(mode="async", transport=wire, max_staleness=2)
+        gc.collect()
+        engines = [CollaborativeEngine(model, c, B, ML, device=dev)
+                   for c in (loud_cfg, cfg_thr)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        s0 = server_stats()
+        sessions = [e.session(conf).__enter__() for e in engines]
+        outs = ([], [])
+        try:
+            with BusySampler() as busy:
+                t0 = time.perf_counter()
+                for t in range(S):
+                    for sess, o in zip(sessions, outs):
+                        o.append(sess.step(toks[:, t]))
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+        finally:
+            for sess in sessions:
+                sess.close()
+        s1 = server_stats()
+        loud, quiet = ({k: np.stack([x[k] for x in o], 1)
+                        for k in ("u", "fhat", "triggered")} for o in outs)
+        check(loud["triggered"].all(), "two clients: the loud one triggers "
+              "every step")
+        for key in ("u", "triggered"):
+            check(np.array_equal(quiet[key], alone[key]),
+                  f"two clients: the quiet client's {key} equals its run "
+                  "alone")
+        check((quiet["fhat"] <= quiet["u"]).all()
+              and (loud["fhat"] <= loud["u"]).all(), "two clients: fhat <= u")
+        check(np.array_equal(engines[1].server_pos, sync_pos),
+              "two clients: the quiet client's server_pos equals its run "
+              "alone")
+        rep = engines[1].comms.report()
+        check(np.array_equal(rep["per_stream"]["bytes_sent"],
+                             alone["comms"]["per_stream"]["bytes_sent"]),
+              "two clients: the quiet client's bytes equal its run alone")
+        check(rep["async"]["inflight_now"] == 0
+              and engines[0].comms.report()["async"]["inflight_now"] == 0,
+              "two clients: nothing in flight at close")
+        replays = s1.get("replays", 0) - s0.get("replays", 0)
+        requests = s1.get("requests", 0) - s0.get("requests", 0)
+        print(f"{label} two clients k=2 (one triggering every step): "
+              f"{2 * B * S / dt:.1f} tokens/s over both, {dt / S * 1e3:.2f} "
+              f"ms per step of both; quiet client RTT mean "
+              f"{rep['wire']['rtt_mean_s'] * 1e3:.2f} ms; server: {replays} "
+              f"replays of {requests} requests (coalesce_width "
+              f"{requests / max(replays, 1):.2f}); client peak device "
+              f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+              f"GiB; card busy {busy.text()}")
+        del engines, sessions, sess  # their caches
+        again, dt, peak, _, busy, _ = serve(SessionConfig())
+        check(np.array_equal(again["fhat"], sync["fhat"]), "sync run repeats")
+        print(line("sync again, after the wire runs", again, dt, peak, busy))
+        client = kernels.launch_counts()
+        for k in SERVE_KERNELS:
+            total[k] += client[k]
+        print(f"{label}: client process launches "
+              f"{ {k: client[k] for k in SERVE_KERNELS} }")
+        del model
+    finally:
+        stop.set()
+        child.join(timeout=120)
+        if child.is_alive():
+            child.terminate()
+            child.join(timeout=30)
+            if child.is_alive():
+                child.kill()
+                child.join(timeout=30)
+    check(child.exitcode == 0, f"the server process exits cleanly "
+          f"(exit code {child.exitcode})")
+    with open(out) as fh:
+        srv = json.load(fh)
+    st = srv["stats"]
+    for k in SERVE_KERNELS:
+        check(srv["launches"][k] > 0, f"the server process launched {k}")
+        total[k] += srv["launches"][k]
+    print(f"{label}: server process launches in the main path's runs "
+          f"{ {k: srv['launches'][k] for k in SERVE_KERNELS} }; over all "
+          f"its runs, the warm-up included: {st['sessions']} sessions, {st['requests']} requests in "
+          f"{st['replays']} replays ({st['coalesced']} coalesced, "
+          f"coalesce_width mean {st['coalesce_width_mean']:.2f} max "
+          f"{st['coalesce_width_max']:.0f}), replay "
+          f"{st['replay_s_mean'] * 1e3:.2f} ms mean, queue wait "
+          f"{st['queue_wait_s_mean'] * 1e3:.3f} ms mean; rx "
+          f"{st['bytes_rx']} B, tx {st['bytes_tx']} B in {st['tx_flushes']} "
+          f"flushes; server peak device memory {srv['peak_gib'] or 0:.2f} "
+          "GiB")
+    # the server's stats (not its launch counts) include the warm-up: the
+    # warm-up, one per staleness, the two clients
+    check(st["sessions"] == len(WIRE_STALENESS) + 3,
+          f"the server served every session ({st['sessions']})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire_launcher_smoke(torch, dev)
+    return total
+
+
+def wire_launcher_smoke(torch, dev) -> None:
+    """``python -m repro_torch.launch.server`` on the card at SMOKE size
+    (granite-8b, seed 0, as the launcher inits) and a wire session
+    against it from this process: u and triggers bitwise the client's own
+    sync, fhat <= u, server_pos equal, the weights digests equal."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.launch import server as launcher
+    from repro_torch.serving import MonitorSession, SessionConfig
+    cfg, B, S = registry.get_smoke("granite-8b"), WIRE_SMOKE_BATCH, \
+        WIRE_SMOKE_STEPS
+    label = f"[serve-wire] launcher, {cfg.name} SMOKE"
+    model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(0), dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+
+    def session(**kw):
+        return MonitorSession.open(model, cfg, batch=B, max_len=32,
+                                   device=dev, config=SessionConfig(**kw))
+    probe = session(mode="scan").run(toks)
+    conf = dict(threshold=float(np.quantile(probe["u"], 0.7)),
+                trigger_margin=0.0)
+    tmp = tempfile.mkdtemp(prefix="wire_")
+    ready = os.path.join(tmp, "ready")
+    t0 = time.perf_counter()
+    proc = launcher.spawn_subprocess(
+        "granite-8b", uds=socket_path(tmp), slots=B, max_len=32,
+        ready_file=ready, timeout_s=300,
+        extra_args=("--device", str(dev), "--idle-exit-s", "60"))
+    try:
+        address, digest = launcher.read_ready(ready)
+        check(digest == launcher.weights_digest(model),
+              "launcher: weights digests equal")
+        startup = time.perf_counter() - t0
+        s1 = session(**conf)
+        r1 = s1.run(toks)
+        s = session(**conf, mode="async", transport=f"wire:{address}",
+                    max_staleness=2)
+        r = s.run(toks)
+        for key in ("u", "triggered"):
+            check(np.array_equal(r[key], r1[key]),
+                  f"launcher: {key} bitwise equal to sync")
+        check(0.0 < r1["triggered"].mean() < 1.0, "launcher: mixed triggers")
+        check((r["fhat"] <= r["u"]).all(), "launcher: fhat <= u")
+        check(np.array_equal(s.engine.server_pos, s1.engine.server_pos),
+              "launcher: server_pos equal to sync")
+        w = r["comms"]["wire"]
+        print(f"{label}: started and ready in {startup:.1f} s (weights "
+              f"digest {digest} on both sides); k=2 over the wire: u and "
+              f"triggers bitwise the client's sync, fhat <= u, {w['replies']}"
+              f" replies, RTT mean {w['rtt_mean_s'] * 1e3:.2f} ms")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2085,6 +2548,11 @@ def main(argv=None) -> int:
             counts[name] += run[name]
         gc.collect()
         torch.cuda.empty_cache()
+    run = phase_wire(torch, dev, args, full)
+    for name in SERVE_KERNELS:
+        counts[name] += run[name]
+    gc.collect()
+    torch.cuda.empty_cache()
     for cfg, n_full, lr_witness in (
             (full.replace(n_layers=TRAIN_LAYERS), full.n_layers, True),
             (zfull.replace(n_layers=HYBRID_TRAIN_LAYERS), zfull.n_layers,

@@ -72,9 +72,13 @@ class CommsMeter:
     ``Dispatcher`` fills these): per-stream in-flight requests, the edge
     loop's stall time blocked on overdue replies, the server busy time,
     and ``overlap_ratio``, the share of request wall time hidden behind
-    edge decode.  This is the reference's meter without its wire, shm and
-    failover counters, which belong to transports not ported yet
-    (ROADMAP queue 1, items 5-6).
+    edge decode.
+
+    The ``wire`` transport (``async_rpc.SocketWorker``) meters what it
+    measures on the socket: bytes written and read (frames with their
+    headers, the handshake included) and each request's round trip.
+    This is the reference's meter without its shm and failover counters,
+    which belong to transports not ported yet (ROADMAP queue 1, item 6).
     """
 
     bytes_per_request: int
@@ -93,6 +97,12 @@ class CommsMeter:
     stall_s: float = 0.0       # edge-loop time blocked on overdue replies
     server_busy_s: float = 0.0  # worker compute time
     request_wall_s: float = 0.0  # dispatch -> reply visible (incl. latency)
+    # -- wire transport (filled by SocketWorker): measured, not modelled ----
+    wire_tx_bytes: int = 0     # bytes written to the socket
+    wire_rx_bytes: int = 0     # bytes read off the socket
+    wire_rtt_s: float = 0.0    # sum of measured dispatch -> reply round trips
+    wire_rtt_max_s: float = 0.0
+    wire_replies: int = 0
 
     def __post_init__(self) -> None:
         if self.tokens_sent is None:
@@ -106,6 +116,7 @@ class CommsMeter:
         self._ring_pos = 0
         self._per_stream_used = False
         self._async_used = False
+        self._wire_used = False
         self._inflight_reqs = 0
 
     def update(self, n_triggered: int, n_total: int) -> None:
@@ -164,6 +175,25 @@ class CommsMeter:
         self.server_busy_s += float(compute_s)
         self.request_wall_s += float(wall_s)
 
+    # -- wire transport (measured bytes and latency; serving/wire.py) -------
+    def record_wire_tx(self, nbytes: int) -> None:
+        """``nbytes`` handed to the kernel (frames with their headers, the
+        handshake included): the measured counterpart of ``bytes_sent``."""
+        self._wire_used = True
+        self.wire_tx_bytes += int(nbytes)
+
+    def record_wire_rx(self, nbytes: int) -> None:
+        self._wire_used = True
+        self.wire_rx_bytes += int(nbytes)
+
+    def record_wire_rtt(self, dt: float) -> None:
+        """One measured dispatch -> reply round trip over the socket
+        (serialization, the kernel, the server's replay, decoding)."""
+        self._wire_used = True
+        self.wire_replies += 1
+        self.wire_rtt_s += float(dt)
+        self.wire_rtt_max_s = max(self.wire_rtt_max_s, float(dt))
+
     @property
     def overlap_ratio(self) -> float:
         """Share of request wall time (server compute + network) hidden
@@ -213,5 +243,13 @@ class CommsMeter:
                 "server_busy_s": self.server_busy_s,
                 "request_wall_s": self.request_wall_s,
                 "overlap_ratio": self.overlap_ratio,
+            }
+        if self._wire_used:  # only when the wire transport ran
+            rep["wire"] = {
+                "tx_bytes": self.wire_tx_bytes,
+                "rx_bytes": self.wire_rx_bytes,
+                "replies": self.wire_replies,
+                "rtt_mean_s": self.wire_rtt_s / max(self.wire_replies, 1),
+                "rtt_max_s": self.wire_rtt_max_s,
             }
         return rep

@@ -17,9 +17,14 @@ Typical use::
                                                     max_staleness=2))
     out = sess.run(tokens)          # (8, S) token ids -> traces + comms
 
-The wire, shm and fleet transports, mesh sharding and the recompile
-guard are later slices of the port; asking for them raises
-``NotImplementedError`` naming their ROADMAP item.
+Over the ``wire`` transport (``"wire:/tmp/corr.sock"``) the server half
+runs in a correction server of its own (``python -m
+repro_torch.launch.server``, or the JAX package's): sync mode is the
+strict ``max_staleness=0`` boundary, async mode pipelines, and ATTACH /
+DETACH frames mirror membership changes to the server.  The shm and
+fleet transports, mesh sharding and the recompile guard are later slices
+of the port; asking for them raises ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,37 +49,51 @@ class TransportSpec:
 
     kind      -- ``inproc`` (compute at dispatch, deterministic),
                  ``stream`` (a CUDA side stream; CUDA engines only),
-                 ``thread`` (a worker thread) or ``mock_remote`` (thread +
-                 simulated round trip).  The reference's ``wire`` and
-                 ``shm`` kinds raise ``NotImplementedError`` naming their
-                 ROADMAP item.
-    address   -- ``wire``/``shm`` only (not ported).
-    latency_s -- simulated round trip (stream/thread/mock_remote only).
+                 ``thread`` (a worker thread), ``mock_remote`` (thread +
+                 simulated round trip) or ``wire`` (a real socket to a
+                 correction server).  The reference's ``shm`` kind and
+                 ``fleet:`` addresses raise ``NotImplementedError`` naming
+                 their ROADMAP item.
+    address   -- ``wire`` only: the server's UDS path or ``host:port``.
+    latency_s -- simulated round trip (stream/thread/mock_remote only; the
+                 wire has whatever latency it has).
+    coalesce  -- ``wire`` only: False opts out of the server's request
+                 coalescing (per-request replays).
     """
 
     kind: str = "inproc"
     address: Optional[str] = None
     latency_s: Optional[float] = None
+    coalesce: bool = True
 
     def __post_init__(self):
         if self.kind not in TRANSPORTS:
             raise ValueError(
                 f"unknown transport {self.kind!r}: valid transports are "
                 + ", ".join(repr(t) for t in TRANSPORTS))
-        if self.kind in ("wire", "shm"):
-            raise not_ported("fleet" if str(self.address).startswith(
-                "fleet:") else self.kind)
-        if self.address is not None:
+        fleet = str(self.address).startswith("fleet:")
+        if self.kind == "shm" or fleet:
+            raise not_ported("fleet" if fleet else "shm")
+        if self.address is not None and self.kind != "wire":
             raise ValueError(f"transport {self.kind!r} takes no address "
                              "(only 'wire' and 'shm')")
-        if self.latency_s is not None and self.kind == "inproc":
-            raise ValueError("transport 'inproc' has no latency model")
+        if self.kind == "wire" and self.address is None:
+            raise ValueError(
+                "wire transport needs an address (the correction server's "
+                "UDS path or host:port: python -m "
+                "repro_torch.launch.server)")
+        if self.latency_s is not None and self.kind in ("inproc", "wire"):
+            raise ValueError(
+                f"transport {self.kind!r} has no latency model"
+                + (": RTT is measured on the real socket"
+                   if self.kind == "wire" else ""))
 
     @classmethod
     def parse(cls, spec: Union[str, "TransportSpec"]) -> "TransportSpec":
-        """``"stream"`` -> TransportSpec("stream"); ``"wire:<address>"``,
+        """``"stream"`` -> TransportSpec("stream");
+        ``"wire:/tmp/corr.sock"`` / ``"wire:host:port"`` -> wire + address;
         ``"shm:<address>"`` and ``"fleet:<router>"`` name the reference's
-        socket transports (not ported: they raise).  A TransportSpec
+        transports that are not ported (they raise).  A TransportSpec
         passes through unchanged."""
         if isinstance(spec, cls):
             return spec
@@ -284,7 +303,8 @@ class MonitorSession:
             self._engine._start_async(
                 transport=spec.kind,
                 max_staleness=self.config.effective_staleness,
-                latency_s=spec.latency_s, worker=self._worker)
+                latency_s=spec.latency_s, address=spec.address,
+                wire_coalesce=spec.coalesce, worker=self._worker)
         self._state = "open"
 
     def close(self) -> None:

@@ -24,8 +24,16 @@ compute plus the round trip) should hide behind edge decode.  Two halves:
         its kernels and launches.
       - ``mock_remote`` -- ``thread`` plus a simulated round trip: a reply
         becomes visible ``latency_s`` after its compute finishes.
-      - ``wire`` / ``shm`` -- the reference's socket and shared-memory
-        transports; not ported (ROADMAP queue 1, items 5-6).
+      - ``wire``        -- the real boundary: a ``SocketWorker`` speaks the
+        binary protocol of ``serving/wire.py`` to a correction server in
+        another process (``serving/server.py``, started with ``python -m
+        repro_torch.launch.server``) over a Unix-domain or TCP socket.
+        The server owns the cache; only backlog tokens and scores cross
+        the wire, and round trips and bytes are measured
+        (``CommsMeter.record_wire_*``), not modelled.  The server may be
+        the JAX package's: the frames are the same bytes.
+      - ``shm``         -- the reference's shared-memory rings, and the
+        ``fleet:`` router addresses; not ported (ROADMAP queue 1, item 6).
 
   * ``Dispatcher`` -- the edge side: tracks in-flight requests, polls or
     blocks for replies, and enforces the staleness window.
@@ -61,11 +69,12 @@ from __future__ import annotations
 
 import contextlib
 import queue
+import socket
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Callable, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,8 +82,7 @@ from torch.profiler import record_function
 
 TRANSPORTS = ("inproc", "stream", "thread", "mock_remote", "wire", "shm")
 # the reference's transports that later slices port: kind -> ROADMAP item
-NOT_PORTED = {"wire": "5 (wire codec, correction server)",
-              "shm": "6 (shm, fleet, launchers)",
+NOT_PORTED = {"shm": "6 (shm, fleet, launchers)",
               "fleet": "6 (shm, fleet, launchers)"}
 # dispatches whose timing a StreamWorker keeps (the newest)
 TIMINGS_KEPT = 4096
@@ -111,6 +119,7 @@ class CatchupRequest:
     server_pos: np.ndarray      # (B,) int: catch-up base per stream
     backlog: Backlog            # the backlog's device tensors
     u: torch.Tensor             # (B,) monitor scores at the trigger step
+    u_host: np.ndarray          # the same u on the host (what ``wire`` ships)
     wall_dispatch: float = 0.0  # time.monotonic() at dispatch
     # the session step at dispatch: the staleness clock.  Under slot-pool
     # churn streams carry their own positions, so t (a position) and the
@@ -448,11 +457,316 @@ class MockRemoteWorker(ThreadWorker):
         super().__init__(catchup_fn, params, cache, latency_s=latency_s)
 
 
+class SocketWorker(ServerWorker):
+    """The ``wire`` transport: catch-up requests cross a real socket to a
+    correction server in another process (``serving/server.py``, this
+    package's or the JAX package's).
+
+    The server owns the session's server cache (leased rows of its
+    super-batch) and its token-history mirror; locally ``self.cache`` is
+    the engine's cold cache, and what comes home is ``server_pos``
+    (carried by every reply).  Each dispatch copies its request's backlog
+    tokens (R, B) to the host once and ships, as int32, each triggered
+    stream's first ``t + 1 - server_pos[i]`` tokens in stream order, with
+    the trigger mask, the bases and u (float32, the engine's own host copy
+    of the step's u): the payload the reference's ``encode_request`` slices
+    out of a host history.  Each
+    reply carries v, fhat and the server's timings.  Round trips and the
+    bytes on the socket (the handshake included) are measured into the
+    ``CommsMeter``; ``metrics`` (the engine's registry) receives the RTT
+    breakdown (serialize / socket / queue / compute) and ``tracer`` its
+    spans.
+
+    ``coalesce=False`` opts the session out of the server's request
+    coalescing (per-request replays).  Replies are matched against the
+    head of the flight queue: a duplicate or stale reply is dropped, so
+    the Dispatcher's FIFO contract holds.  A server that dies or answers
+    with an ERROR frame fails the session with ``WireError`` (``PeerGone``
+    at the handshake); nothing falls back to a local replay.  ``fleet:``
+    router addresses and their failover are not ported (ROADMAP queue 1,
+    item 6).
+    """
+
+    kind = "wire"
+    # a blocking wait that sees no reply for this long fails the session
+    # (a hung server must not hang the edge loop forever)
+    _REPLY_TIMEOUT_S = 300.0
+
+    # the handshake's own timeout (connect, HELLO, HELLO_ACK)
+    _CONNECT_TIMEOUT_S = 60.0
+
+    def __init__(self, cache, *, address: str, batch: int, max_len: int,
+                 coalesce: bool = True, comms=None, metrics=None,
+                 tracer=None):
+        from repro_torch.serving import wire
+
+        if address.startswith("fleet:"):
+            raise not_ported("fleet")
+        self._wire = wire
+        self.cache = cache               # stays cold (see the docstring)
+        self.stream = None
+        self._closed = False
+        self._comms = comms
+        self._metrics = metrics
+        self._tracer = tracer
+        self._replies: deque = deque()
+        # req_id -> (dispatch wall time, serialize duration): the client
+        # half of the per-request RTT breakdown
+        self._dispatch_wall: Dict[int, Tuple[float, float]] = {}
+        # the req_ids of unanswered requests, in dispatch order: the head
+        # is the only reply the FIFO contract accepts
+        self._flights: "deque[int]" = deque()
+        self._must_move = False      # GOAWAY received: leave when empty
+        # while corked, outgoing frames gather into one buffer that leaves
+        # in a single transmit at uncork (the engine corks around a step's
+        # cohort fan-out)
+        self._corked: Optional[List[bytes]] = None
+        # no token tail: the port has no audio family
+        hello = wire.Hello(batch, max_len, (), coalesce, "edge")
+        sock, ack, reader, tx, rx = wire.connect_hello(
+            address, hello, timeout=self._CONNECT_TIMEOUT_S)
+        self._sock, self._reader = sock, reader
+        self._tx(tx)
+        self._rx(rx)
+        self.session_id = ack.session_id
+        self.slot_lo = ack.slot_lo
+        peer = sock.getpeername()
+        self.server_address = (peer if isinstance(peer, str)
+                               else f"{peer[0]}:{peer[1]}")
+
+    # -- metering ------------------------------------------------------------
+    def _tx(self, n: int) -> None:
+        if self._comms is not None:
+            self._comms.record_wire_tx(n)
+
+    def _rx(self, n: int) -> None:
+        if self._comms is not None:
+            self._comms.record_wire_rx(n)
+
+    def _fail(self, why: str) -> None:
+        """A direct address has no sibling to move to: the session fails.
+        (The reference's fleet client fails over instead: it re-HELLOs
+        through its router and replays; ROADMAP queue 1, item 6.)"""
+        raise self._wire.WireError(why)
+
+    def _move_now(self) -> None:
+        """A GOAWAY honoured once the pipeline is empty: leave politely;
+        with no router to find a sibling, the session ends there."""
+        try:
+            self._sock.settimeout(1.0)
+            bye = self._wire.encode_bye()
+            self._sock.sendall(bye)
+            self._tx(len(bye))
+        except OSError:
+            pass
+        self._fail("server draining")
+
+    # -- replies ---------------------------------------------------------------
+    def _to_reply(self, msg) -> CatchupReply:
+        now = time.monotonic()
+        disp, ser = self._dispatch_wall.pop(msg.req_id, (now, 0.0))
+        rtt = now - disp
+        if self._comms is not None:
+            self._comms.record_wire_rtt(rtt)
+        if self._metrics is not None or self._tracer is not None:
+            self._breakdown(msg, now, disp, ser, rtt)
+        return CatchupReply(msg.req_id, msg.t, np.asarray(msg.triggered),
+                            np.asarray(msg.v), np.asarray(msg.fhat),
+                            msg.server_time_s, wall_ready=now)
+
+    def _breakdown(self, msg, now: float, disp: float, ser: float,
+                   rtt: float) -> None:
+        """Split one measured RTT into serialize / socket / queue / compute
+        from the REPLY's duration-only timings, observe the pieces into the
+        registry and, when tracing, add the server-side spans, anchored
+        backwards from the reply's arrival (no clock sync)."""
+        compute = max(msg.server_time_s, 0.0)
+        queue_s = msg.queue_s if msg.queue_s >= 0 else None  # None: a v3 peer
+        if self._metrics is not None:
+            m = self._metrics
+            m.observe("rtt_s", max(rtt, 1e-9))
+            m.observe("rtt_serialize_s", max(ser, 1e-9))
+            m.observe("rtt_compute_s", max(compute, 1e-9))
+            if queue_s is not None:
+                m.observe("rtt_queue_s", max(queue_s, 1e-9))
+                m.observe("rtt_socket_s",
+                          max(rtt - queue_s - compute, 1e-9))
+        if self._tracer is not None:
+            tr = self._tracer
+            tr.add("wire.request", "wire", disp, rtt, track="wire",
+                   req_id=msg.req_id, coalesced=msg.coalesced)
+            # compute ends at arrival, the queue wait precedes it, and the
+            # rest of the gap after dispatch is both socket directions
+            tr.add("server.catchup", "server", now - compute, compute,
+                   track="server", req_id=msg.req_id,
+                   coalesced=msg.coalesced)
+            if queue_s is not None:
+                tr.add("server.queue", "server", now - compute - queue_s,
+                       queue_s, track="server", req_id=msg.req_id)
+                tr.add("wire.socket", "wire", disp,
+                       max(rtt - queue_s - compute, 0.0), track="wire",
+                       req_id=msg.req_id)
+
+    def _accept_reply(self, msg) -> bool:
+        """Match a REPLY against the head of the flight queue; anything
+        else (a duplicate, a stale frame) is dropped.  Returns True when a
+        reply landed."""
+        if not self._flights or self._flights[0] != msg.req_id:
+            return False
+        self._flights.popleft()
+        self._replies.append(self._to_reply(msg))
+        return True
+
+    def _on_payloads(self, payloads: List[bytes]) -> bool:
+        wire = self._wire
+        got = False
+        for p in payloads:
+            msg = wire.decode(p)
+            if isinstance(msg, wire.Error):
+                raise wire.WireError(f"server: {msg.message}")
+            if isinstance(msg, wire.GoAway):
+                self._must_move = True
+            elif isinstance(msg, wire.WireReply):
+                got |= self._accept_reply(msg)
+        return got
+
+    def _pump(self, block: bool) -> None:
+        """Drain the socket into ``self._replies``: non-blocking takes what
+        the kernel has; blocking returns once a reply landed, and raises
+        ``WireError`` after ``_REPLY_TIMEOUT_S`` without one."""
+        got = False
+        while True:
+            if self._must_move and not self._flights:
+                self._move_now()
+            self._sock.settimeout(self._REPLY_TIMEOUT_S
+                                  if (block and not got) else 0.0)
+            try:
+                data = self._sock.recv(1 << 16)
+            except BlockingIOError:
+                return
+            except socket.timeout:
+                if block and not got:
+                    self._fail("no reply within "
+                                   f"{self._REPLY_TIMEOUT_S} s")
+                return
+            except InterruptedError:
+                continue
+            except OSError as e:
+                self._fail(f"connection lost: {e}")
+            if not data:
+                self._fail("server closed connection")
+            self._rx(len(data))
+            got |= self._on_payloads(self._reader.feed(data))
+
+    # -- ServerWorker API ------------------------------------------------------
+    def dispatch(self, req: CatchupRequest) -> None:
+        if self._must_move and not self._flights:
+            self._move_now()
+        t = int(req.t)
+        trig = np.asarray(req.triggered, bool)
+        pos = np.asarray(req.server_pos, np.int32)
+        lengths = np.where(trig, t + 1 - pos, 0)
+        t_enc = time.monotonic()
+        # the backlog's (R, B) tokens to the host once; each triggered
+        # stream's backlog, concatenated in stream order
+        toks = req.backlog.tokens.cpu().numpy()
+        rows = np.flatnonzero(trig)
+        tokens = (np.concatenate([toks[:lengths[i], i] for i in rows])
+                  if len(rows) else np.zeros(0, np.int32))
+        buf = self._wire.encode_request_arrays(self._wire.WireRequest(
+            req.req_id, t, trig, pos, req.u_host, tokens))
+        t_send = time.monotonic()
+        self._dispatch_wall[req.req_id] = (t_send, t_send - t_enc)
+        if self._tracer is not None:
+            self._tracer.add("wire.encode", "wire", t_enc, t_send - t_enc,
+                             track="wire", req_id=req.req_id,
+                             bytes=len(buf), tokens=int(lengths.sum()))
+        self._flights.append(req.req_id)
+        self._send_frame(buf)
+
+    def poll(self) -> List[CatchupReply]:
+        self._pump(block=False)
+        out = list(self._replies)
+        self._replies.clear()
+        return out
+
+    def wait(self, req_id: int) -> List[CatchupReply]:
+        out: List[CatchupReply] = []
+        while True:
+            while self._replies:
+                r = self._replies.popleft()
+                out.append(r)
+                if r.req_id == req_id:
+                    return out
+            self._pump(block=True)
+
+    # -- frame egress ----------------------------------------------------------
+    def _send_frame(self, buf: bytes) -> None:
+        if self._corked is not None:
+            self._corked.append(buf)
+            return
+        self._transmit(buf)
+
+    def _transmit(self, buf: bytes) -> None:
+        """The only place client bytes leave."""
+        self._sock.settimeout(None)
+        try:
+            self._sock.sendall(buf)
+        except OSError as e:
+            self._fail(f"send failed: {e}")
+        self._tx(len(buf))
+
+    def cork(self) -> None:
+        """Start gathering outgoing frames (idempotent); ``uncork`` sends
+        them as one transmit.  Callers wrap a dispatch fan-out, never a
+        wait."""
+        if self._corked is None:
+            self._corked = []
+
+    def uncork(self) -> None:
+        bufs, self._corked = self._corked, None
+        if bufs:
+            self._transmit(b"".join(bufs))
+
+    # -- slot-pool churn (MonitorSession.attach/detach over the wire) ----------
+    def attach_slot(self, slot: int) -> None:
+        """Tell the server to zero and re-lease row ``slot`` of this
+        session's lease (a new stream moved in).  The socket is FIFO, so
+        the reset lands before any later request; the engine drains its
+        pipeline first."""
+        if self._must_move and not self._flights:
+            self._move_now()
+        self._send_frame(self._wire.encode_attach(slot))
+
+    def detach_slot(self, slot: int) -> None:
+        """Tell the server the stream in row ``slot`` left (it zeroes the
+        row; ATTACH zeroes it again on reuse)."""
+        self._send_frame(self._wire.encode_detach(slot))
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self._sock.settimeout(1.0)
+            bye = self._wire.encode_bye()
+            self._sock.sendall(bye)
+            self._tx(len(bye))
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
 def make_worker(transport: str, catchup_fn, params, cache, *,
-                latency_s: Optional[float] = None) -> ServerWorker:
+                latency_s: Optional[float] = None,
+                wire_opts: Optional[Dict[str, Any]] = None) -> ServerWorker:
     """``latency_s=None`` keeps each transport's own default (0 for
-    stream/thread, 20 ms for mock_remote).  ``wire`` and ``shm`` raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    stream/thread, 20 ms for mock_remote).  ``wire_opts`` configures the
+    ``wire`` transport (at least ``address``; see ``SocketWorker``).
+    ``shm`` raises ``NotImplementedError`` naming its ROADMAP item."""
     if transport not in TRANSPORTS:
         raise ValueError(
             f"unknown transport {transport!r}: valid transports are "
@@ -463,6 +777,17 @@ def make_worker(transport: str, catchup_fn, params, cache, *,
         if latency_s:
             raise ValueError("inproc transport has no latency model")
         return ServerWorker(catchup_fn, params, cache)
+    if transport == "wire":
+        if latency_s:
+            raise ValueError(
+                "wire transport has no simulated latency: RTT is measured "
+                "on the real socket (drop latency_s)")
+        if not wire_opts or "address" not in wire_opts:
+            raise ValueError(
+                "wire transport needs wire_opts={'address': ...} pointing "
+                "at a running correction server (python -m "
+                "repro_torch.launch.server)")
+        return SocketWorker(cache, **wire_opts)
     kw = {} if latency_s is None else {"latency_s": latency_s}
     cls = {"stream": StreamWorker, "thread": ThreadWorker,
            "mock_remote": MockRemoteWorker}[transport]
@@ -505,9 +830,10 @@ class Dispatcher:
 
     def dispatch(self, *, t: int, triggered: np.ndarray,
                  server_pos: np.ndarray, backlog: Backlog, u,
+                 u_host: np.ndarray,
                  step_t: Optional[int] = None) -> CatchupRequest:
         req = CatchupRequest(self._next_id, int(t), np.array(triggered),
-                             np.array(server_pos), backlog, u,
+                             np.array(server_pos), backlog, u, u_host,
                              wall_dispatch=time.monotonic(),
                              step_t=int(t) if step_t is None else int(step_t))
         self._next_id += 1

@@ -25,7 +25,9 @@ stream i ships only stream i's backlog and charges only stream i in the
     server cache for the session, and the edge loop keeps decoding;
     corrections merge 1..``max_staleness`` steps late while u and the
     trigger decision stay exact.  ``max_staleness=0`` is bit-identical to
-    ``_step``.
+    ``_step``.  Over the ``wire`` transport the server half is a
+    ``CorrectionServer`` in another process (``serving/server.py``): it
+    owns the session's server cache, and the engine's own stays cold.
   * ``_run_scan`` (mode="scan"): offline trace evaluation, edge and server
     in lockstep over the whole stream, corrections routed through
     ``core.gating.compact_correction`` with static capacity.  It does not
@@ -96,6 +98,7 @@ class CollaborativeEngine:
         self._tracer = None
         self._dispatcher = None
         self._worker = None
+        self._remote_detached = False  # set when a wire session closes
 
     def _calibrated_point(self) -> np.float32:
         return np.float32(self.m.threshold - self.m.trigger_margin)
@@ -136,34 +139,41 @@ class CollaborativeEngine:
         self._history[rows, idx] = torch.where(act, tokens_t,
                                                self._history[rows, idx])
 
-    def _backlog(self, server_pos: np.ndarray, t,
-                 triggered: np.ndarray) -> Backlog:
+    def _backlog(self, server_pos: np.ndarray, t, triggered: np.ndarray,
+                 history: Optional[np.ndarray] = None) -> Backlog:
         """The catch-up's inputs for the triggered streams, on the device
         and the current stream: each triggered stream i replays history[i,
         server_pos[i]:t_i+1].  Rounds run to the longest triggered backlog;
         a stream that has finished is masked out of later rounds.  ``t``:
         scalar or (B,) end positions.  The tokens are gathered now, so a
-        worker never reads the history, which later steps overwrite."""
+        worker never reads the history, which later steps overwrite.
+        ``history``: None reads the engine's own (on the device); the
+        correction server passes its host mirror, (B, max_len) int32,
+        whose tokens are gathered on the host and uploaded as one (R, B)
+        block."""
         B = self.batch
         t_vec = np.broadcast_to(np.asarray(t, np.int64), (B,))
         n_rounds = int(np.max(np.where(triggered, t_vec + 1 - server_pos, 0)))
         # every round's positions, masks and tokens in one transfer/gather
         pos = server_pos[None, :] + np.arange(n_rounds)[:, None]     # (R, B)
         act = triggered[None, :] & (pos <= t_vec[None, :])
-        idx = torch.as_tensor(np.clip(pos, 0, self.max_len - 1).T,
-                              device=self.device)
+        clipped = np.clip(pos, 0, self.max_len - 1)
+        if history is None:
+            idx = torch.as_tensor(clipped.T, device=self.device)
+            tokens = torch.gather(self._history, 1, idx).T           # (R, B)
+        else:
+            tokens = torch.as_tensor(
+                history[np.arange(B)[None, :], clipped].astype(np.int64),
+                device=self.device)
         return Backlog(
-            tokens=torch.gather(self._history, 1, idx).T,            # (R, B)
+            tokens=tokens,
             pos=torch.as_tensor(pos.astype(np.int32), device=self.device),
             active=torch.as_tensor(act, device=self.device),
             triggered=torch.as_tensor(triggered, device=self.device))
 
-    def _catchup_apply(self, params, cache, backlog: Backlog,
-                       u: torch.Tensor):
-        """Masked per-element server catch-up + fused correction on
-        ``cache`` (written in place; untriggered rows stay bit-unchanged).
-        Returns (v, fhat).  An async session's worker runs this on the
-        cache it owns; it reads nothing of the engine's live state."""
+    def _catchup_v(self, params, cache, backlog: Backlog) -> torch.Tensor:
+        """Masked per-element server catch-up on ``cache`` (written in
+        place; untriggered rows stay bit-unchanged).  Returns v (B,)."""
         B = self.batch
         last_hidden = torch.zeros((B, self.cfg.d_model), dtype=torch.float32,
                                   device=self.device)
@@ -173,16 +183,31 @@ class CollaborativeEngine:
                                 backlog.active[r], with_logits=False)
             last_hidden = torch.where(backlog.active[r][:, None],
                                       hidden.float(), last_hidden)
-        v = self._v_head(params, last_hidden)
+        return self._v_head(params, last_hidden)
+
+    def _fuse(self, u: torch.Tensor, v: torch.Tensor,
+              triggered: torch.Tensor) -> torch.Tensor:
+        """fhat = u - s*sigma(v) where ``triggered``, else u; elementwise,
+        so the correction server fuses every reply of a replay in one
+        call."""
         if self.m.sigma == "sigmoid":
             # fused combine: fhat, trigger mask and safety counters in one
-            # pass over the batch (the Hopper kernel on a CUDA tensor)
+            # pass (the Hopper kernel on a CUDA tensor)
             fhat_all, _, _ = ops.monitor_combine(
                 u, v, u, s=self.m.s, threshold=self.m.threshold,
                 margin=self.m.trigger_margin)
         else:
             fhat_all = u - self.m.s * deco.sigma(v, self.m.sigma)
-        return v, torch.where(backlog.triggered, fhat_all, u)
+        return torch.where(triggered, fhat_all, u)
+
+    def _catchup_apply(self, params, cache, backlog: Backlog,
+                       u: torch.Tensor):
+        """Masked per-element server catch-up + fused correction on
+        ``cache`` (written in place).  Returns (v, fhat).  An async
+        session's worker runs this on the cache it owns; it reads nothing
+        of the engine's live state."""
+        v = self._catchup_v(params, cache, backlog)
+        return v, self._fuse(u, v, backlog.triggered)
 
     def _catchup(self, params, cache, server_pos: np.ndarray, t,
                  triggered: np.ndarray, u: torch.Tensor):
@@ -226,11 +251,25 @@ class CollaborativeEngine:
                     n_triggered=int(triggered.sum()))
         return u, u_np, triggered
 
+    def _check_not_detached(self) -> None:
+        """After a ``wire`` session the engine's server state lived in the
+        remote correction server and went with the session (the server
+        frees the lease at BYE and zeroes it for its next tenant): the
+        local server cache is cold while ``server_pos`` records the remote
+        progress, so serving on would replay partial backlogs into an
+        empty cache.  Refuse."""
+        if self._remote_detached:
+            raise RuntimeError(
+                "this engine's server state lived in a remote correction "
+                "server (wire transport) and was discarded when the "
+                "session closed; create a fresh engine to serve again")
+
     @torch.inference_mode()
     def _step(self, tokens_t) -> Dict[str, np.ndarray]:
         """One synchronous monitoring step over the slot pool.  Returns
         full-batch u, fhat, triggered (inactive slots: 0/0/False)."""
         B = self.batch
+        self._check_not_detached()
         active = self.active.copy()
         t_vec = self.edge_pos.copy()  # per-slot time before this step
         u, u_np, triggered = self._monitor_prologue(tokens_t)
@@ -260,22 +299,37 @@ class CollaborativeEngine:
     def _start_async(self, *, transport: str = "stream",
                      max_staleness: int = 1,
                      latency_s: Optional[float] = None,
+                     address: Optional[str] = None,
+                     wire_coalesce: bool = True,
                      worker=None) -> None:
         """Open an async session: hand the server cache to a worker and set
         up the dispatch/merge layer.  ``transport``: inproc | stream |
-        thread | mock_remote (``serving/async_rpc.py``); ``max_staleness``:
-        0 is the strict synchronous boundary (bit-identical to ``_step``),
-        k >= 1 lets a reply land 1..k steps after its trigger, blocking
-        the edge loop only at k; ``latency_s``: a simulated round trip
-        (stream, thread, mock_remote; None keeps the transport's
-        default)."""
+        thread | mock_remote | wire (``serving/async_rpc.py``);
+        ``max_staleness``: 0 is the strict synchronous boundary
+        (bit-identical to ``_step``), k >= 1 lets a reply land 1..k steps
+        after its trigger, blocking the edge loop only at k;
+        ``latency_s``: a simulated round trip (stream, thread, mock_remote;
+        None keeps the transport's default).  ``address`` (wire only): the
+        correction server's UDS path or host:port (``python -m
+        repro_torch.launch.server``); the server then owns the session's
+        server cache and only ``server_pos`` comes home.
+        ``wire_coalesce=False`` opts the session out of the server's
+        request coalescing."""
         from repro_torch.serving import async_rpc
         if self._dispatcher is not None:
             raise RuntimeError("async session already open")
+        self._check_not_detached()
         if worker is None:
+            wire_opts = None
+            if transport == "wire" and address is not None:
+                wire_opts = dict(address=address, batch=self.batch,
+                                 max_len=self.max_len, coalesce=wire_coalesce,
+                                 comms=self.comms, metrics=self.metrics,
+                                 tracer=self._tracer)
             worker = async_rpc.make_worker(transport, self._catchup_apply,
                                            self.params, self.server.cache,
-                                           latency_s=latency_s)
+                                           latency_s=latency_s,
+                                           wire_opts=wire_opts)
         self._worker = worker
         self._dispatcher = async_rpc.Dispatcher(
             worker, max_staleness=max_staleness, comms=self.comms,
@@ -303,14 +357,24 @@ class CollaborativeEngine:
             shipped = np.where(triggered, t_vec + 1 - self._dispatch_pos, 0)
             # one request per same-position cohort, each with a scalar-t
             # backlog, as the reference ships them (a uniform pool is one
-            # request)
-            for p in sorted(set(t_vec[triggered].tolist())):
-                mask_p = triggered & (t_vec == p)
-                self._dispatcher.dispatch(
-                    t=int(p), triggered=mask_p,
-                    server_pos=self._dispatch_pos,
-                    backlog=self._backlog(self._dispatch_pos, int(p), mask_p),
-                    u=u, step_t=self.t)
+            # request); a socket worker is corked around the fan-out, so
+            # the cohort's requests leave in one transmit
+            worker = self._worker
+            corked = hasattr(worker, "cork")
+            if corked:
+                worker.cork()
+            try:
+                for p in sorted(set(t_vec[triggered].tolist())):
+                    mask_p = triggered & (t_vec == p)
+                    self._dispatcher.dispatch(
+                        t=int(p), triggered=mask_p,
+                        server_pos=self._dispatch_pos,
+                        backlog=self._backlog(self._dispatch_pos, int(p),
+                                              mask_p),
+                        u=u, u_host=u_np, step_t=self.t)
+            finally:
+                if corked:
+                    worker.uncork()
             self.comms.update_per_stream(shipped, active.astype(np.int64))
             self._dispatch_pos = np.where(triggered, t_vec + 1,
                                           self._dispatch_pos)
@@ -366,6 +430,11 @@ class CollaborativeEngine:
         self._drain_async()
         self.server.cache = self._worker.cache
         self.server.pos = int(self.server_pos.max())
+        if self._worker.kind == "wire":
+            # the worker's cache is the engine's cold one (the real cache
+            # lived, and went, in the server process): serving on would be
+            # silently wrong
+            self._remote_detached = True
         self._worker.close()
         self._dispatcher = self._worker = None
 
@@ -375,12 +444,16 @@ class CollaborativeEngine:
         previous tenant left (edge and server cache rows, token history,
         positions, threshold) is reset, as in a freshly built engine.  In
         async mode the pipeline drains first, and the rows are reset in
-        the cache the worker owns."""
+        the cache the worker owns; over the wire an ATTACH frame tells the
+        correction server to zero and re-lease its row."""
         rows = np.zeros(self.batch, bool)
         rows[slot] = True
         if self._dispatcher is not None:
             self._drain_async()
-            self.server.zero_rows(rows, self._worker.cache)
+            if self._worker.kind == "wire":
+                self._worker.attach_slot(slot)
+            else:
+                self.server.zero_rows(rows, self._worker.cache)
             self._dispatch_pos[slot] = 0
         else:
             self.server.zero_rows(rows)
@@ -397,9 +470,12 @@ class CollaborativeEngine:
         """Retire the stream in ``slot``: masked out of decode, trigger and
         comms accounting from the next step on (attach zeroes on reuse).
         In async mode the pipeline drains first, so no in-flight reply can
-        land on the freed slot."""
+        land on the freed slot; over the wire a DETACH frame tells the
+        correction server."""
         if self._dispatcher is not None:
             self._drain_async()
+            if self._worker.kind == "wire":
+                self._worker.detach_slot(slot)
         self.active[slot] = False
 
     # -- offline scan path ---------------------------------------------------
@@ -462,6 +538,7 @@ class CollaborativeEngine:
     # -- the reference engine's shim ------------------------------------------
     def run_async(self, token_stream, *, transport: str = "stream",
                   max_staleness: int = 1, latency_s: Optional[float] = None,
+                  address: Optional[str] = None, wire_coalesce: bool = True,
                   worker=None) -> Dict[str, object]:
         """Deprecated, as in the reference: a thin shim over
         ``MonitorSession`` in async mode, kept so that code written
@@ -473,7 +550,8 @@ class CollaborativeEngine:
             "MonitorSession instead -- engine.session(SessionConfig("
             "mode='async', ...)).run(stream)", DeprecationWarning,
             stacklevel=2)
-        spec = TransportSpec(transport, latency_s=latency_s)
+        spec = TransportSpec(transport, address=address,
+                             latency_s=latency_s, coalesce=wire_coalesce)
         config = SessionConfig(mode="async", transport=spec,
                                max_staleness=max_staleness)
         with self.session(config, worker=worker) as s:

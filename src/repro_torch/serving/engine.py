@@ -46,6 +46,18 @@ def zero_cache_rows(cache, rows: torch.Tensor) -> None:
             leaf.masked_fill_(rows.reshape(shape), 0)
 
 
+def permute_cache_rows(cache, perm: torch.Tensor) -> None:
+    """Row ``i`` of every cache leaf takes old row ``perm[i]`` (``perm``:
+    a (B,) permutation), in place: the reference's ``jnp.take`` over the
+    batch axes, which the correction server's lease defrag uses.  In
+    place because the server's cache is the dict that ``step_at``
+    writes."""
+    for entry in cache.values():
+        axis = CACHE_BATCH_AXIS[type(entry)]
+        for leaf in entry:
+            leaf.copy_(leaf.index_select(axis, perm))
+
+
 def step_at(params, cfg: ArchConfig, cache, tokens_t: torch.Tensor,
             pos: torch.Tensor, active: torch.Tensor, *,
             with_logits: bool = True):

@@ -230,12 +230,21 @@ def test_stream_transport_needs_a_cuda_engine():
 
 @pytest.mark.parametrize("transport", ["wire", "shm"])
 def test_socket_workers_are_not_ported(transport):
+    """``wire`` is ported: it refuses a missing address and a simulated
+    latency with the reference's ValueErrors (its sessions are tested in
+    tests/test_torch_server.py); ``shm`` still names its ROADMAP item."""
     cfg, model = _granite()
     eng = _engine(model, cfg, 2, 8)
-    item = {"wire": "item 5", "shm": "item 6"}[transport]
-    with pytest.raises(NotImplementedError, match=item):
-        async_rpc.make_worker(transport, eng._catchup_apply, eng.params,
-                              eng.server.cache)
+    args = (eng._catchup_apply, eng.params, eng.server.cache)
+    if transport == "shm":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+            async_rpc.make_worker(transport, *args)
+        return
+    with pytest.raises(ValueError, match="address"):
+        async_rpc.make_worker(transport, *args)
+    with pytest.raises(ValueError, match="measured"):
+        async_rpc.make_worker(transport, *args, latency_s=0.01,
+                              wire_opts={"address": "/nowhere"})
 
 
 def test_thread_worker_reraises_a_failed_catchup():

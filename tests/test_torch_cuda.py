@@ -662,3 +662,53 @@ def test_launch_counts_exact_with_two_issuing_threads(cuda):
     assert counts[0] == counts[1]
     assert counts[0]["decode_attention"] > 0
     assert counts[0]["monitor_combine"] > 0
+
+
+# -- the wire transport on the card ---------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [8, 4], ids=["slots8", "slots=B"])
+@pytest.mark.parametrize("k", [0, 2])
+def test_wire_loopback_on_card(cuda, k, slots, tmp_path):
+    """A correction server on the card in a thread of this process, a wire
+    session of B = 4 streams against it: u and triggers bitwise the port's
+    own sync run, server_pos and per-stream bytes equal, fhat <= u, and
+    the server's replays launch both serve kernels.  At k = 0 fhat is
+    within bf16's 2e-2 of sync; with slots == B the server's replay has
+    the sync engine's shapes, and fhat and the lease's final cache rows
+    are bitwise sync's."""
+    import threading
+    from repro_torch.serving import TransportSpec
+    from repro_torch.serving.server import CorrectionServer
+    cfg, model, toks, conf = _async_case(cuda)
+    r1, e1 = _serve(model, cfg, toks, conf)
+    srv = CorrectionServer(cfg, model, slots=slots, max_len=32,
+                           uds=str(tmp_path / "s.sock"), device=cuda)
+    stop = threading.Event()
+    th = threading.Thread(target=srv.serve_forever, kwargs=dict(stop=stop),
+                          daemon=True)
+    th.start()
+    try:
+        kernels.reset_launch_counts()
+        r, e = _serve(model, cfg, toks, conf, mode="async", max_staleness=k,
+                      transport=TransportSpec("wire", address=srv.address))
+    finally:
+        stop.set()
+        th.join(timeout=60)
+        srv.close()
+    assert not th.is_alive()
+    for key in ("u", "triggered"):
+        np.testing.assert_array_equal(r[key], r1[key], err_msg=key)
+    assert 0 < r1["triggered"].mean() < 1
+    assert (r["fhat"] <= r["u"]).all()
+    if k == 0:
+        np.testing.assert_allclose(r["fhat"], r1["fhat"], atol=2e-2)
+        if slots == toks.shape[0]:
+            np.testing.assert_array_equal(r["fhat"], r1["fhat"])
+            assert _caches_equal(e1.server.cache, srv._cache)
+    np.testing.assert_array_equal(e.server_pos, e1.server_pos)
+    np.testing.assert_array_equal(r["comms"]["per_stream"]["bytes_sent"],
+                                  r1["comms"]["per_stream"]["bytes_sent"])
+    assert r["comms"]["wire"]["replies"] == srv.stats["requests"] > 0
+    counts = kernels.launch_counts()
+    assert counts["decode_attention"] > 0 and counts["monitor_combine"] > 0

@@ -24,6 +24,8 @@ import repro_torch.serving.async_rpc, repro_torch.serving.policy
 import repro_torch.serving.tracker, repro_torch.observability
 import repro_torch.observability.trace, repro_torch.observability.metrics
 import repro_torch.observability.report
+import repro_torch.serving.wire, repro_torch.serving.server
+import repro_torch.launch.server
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)
@@ -119,11 +121,12 @@ def test_hybrid_constructors_default_to_the_card(monkeypatch, entry):
         call()
 
 
-@pytest.mark.parametrize("entry", ["async_session", "cascade"])
+@pytest.mark.parametrize("entry", ["async_session", "cascade",
+                                   "wire_session"])
 def test_async_session_and_cascade_default_to_the_card(monkeypatch, entry):
-    """An async session, and each tier a CascadeSession is built over,
-    read device=None as CUDA: without a card they raise, and no worker
-    falls back to the host."""
+    """An async session, each tier a CascadeSession is built over, and a
+    wire session read device=None as CUDA: without a card they raise, and
+    no worker falls back to the host."""
     from repro_torch.configs.paper_synthetic import SERVING
     from repro_torch.core.decomposition import init_collab_lm
     from repro_torch.serving import (CascadeSession, MonitorSession,
@@ -137,6 +140,10 @@ def test_async_session_and_cascade_default_to_the_card(monkeypatch, entry):
                                    config=config)
     call = {"async_session": tier,
             "cascade": lambda: CascadeSession(tier(), tier(),
-                                              escalate_above=0.0)}[entry]
+                                              escalate_above=0.0),
+            "wire_session": lambda: MonitorSession.open(
+                model, SERVING, batch=2, max_len=8,
+                config=SessionConfig(mode="async",
+                                     transport="wire:/nowhere.sock"))}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -7,9 +7,9 @@ sessions are bitwise identical to untraced ones on the sync, scan and
 async paths; the disabled path never touches a tracer.  Against the JAX
 package: a trace exported by either package validates under the other's
 ``validate_chrome_trace``, and a traced session of each package on the
-same weights records the same span names and the same metrics keys.  The
-reference's wire timing payload and traced wire sessions wait for the
-port's wire transport (ROADMAP queue 1, item 5).
+same weights records the same span names and the same metrics keys.
+Traced wire sessions and the wire timing payload are tested in
+tests/test_torch_server.py.
 """
 import json
 import os

@@ -9,8 +9,8 @@ tests/test_policy.py and tests/test_churn.py::TestPolicyChurn:
 async-thread and sync-over-thread paths, and those paths agree with each
 other; ``fhat <= u`` under any threshold trajectory; the floor holds; the
 controllers' rules; the three-rung cascade; and a re-attached slot gets a
-cold controller.  The reference's cascade over its wire transport waits
-for the port's wire transport (ROADMAP queue 1, item 5).
+cold controller.  The cascade over the wire transport is tested in
+tests/test_torch_server.py.
 """
 import numpy as np
 import pytest

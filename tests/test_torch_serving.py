@@ -24,7 +24,7 @@ from repro.serving.collaborative import CollaborativeEngine as JEngine
 from repro_torch.core import decomposition as tdeco
 from repro_torch.core.gating import compact_correction
 from repro_torch.models import api as tapi
-from repro_torch.serving import MonitorSession, SessionConfig
+from repro_torch.serving import MonitorSession, SessionConfig, TransportSpec
 from repro_torch.serving.collaborative import CollaborativeEngine
 
 from _torch_parity import (ARCHS, TOL_E2E, collab_pair, gap_threshold,
@@ -228,17 +228,24 @@ def test_churn_survivors_exact_and_attach_bit_cold():
 
 def test_session_config_refuses_unported_paths():
     """What the port does not serve yet raises, naming its ROADMAP item:
-    the wire, shm and fleet transports (items 5-6), mesh sharding and the
-    recompile guard (item 8)."""
-    for kw, item in ((dict(transport="wire:/tmp/x.sock"), "item 5"),
-                     (dict(mode="async", transport="wire:host:5555"),
-                      "item 5"),
-                     (dict(mode="async", transport="shm:/tmp/x.sock"),
+    the shm and fleet transports (item 6), mesh sharding and the recompile
+    guard (item 8).  The wire transport is ported: a spec without an
+    address, or with a simulated latency, is refused as the reference
+    refuses it, and an address parses."""
+    for kw, item in ((dict(mode="async", transport="shm:/tmp/x.sock"),
                       "item 6"),
                      (dict(transport="fleet:/tmp/router.sock"), "item 6"),
                      (dict(mesh="data:8"), "item 8")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             SessionConfig(**kw)
+    with pytest.raises(ValueError, match="needs an address"):
+        SessionConfig(mode="async", transport="wire")
+    with pytest.raises(ValueError, match="measured on the real socket"):
+        TransportSpec("wire", address="/tmp/x.sock", latency_s=0.01)
+    spec = SessionConfig(mode="async",
+                         transport="wire:host:5555").transport
+    assert (spec.kind, spec.address, spec.coalesce) == ("wire", "host:5555",
+                                                        True)
     tcfg, _, model = _granite()
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
         MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu"
