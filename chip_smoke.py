@@ -53,7 +53,7 @@ Phases, each printing its own lines:
               every logit is finite; prefill and generate tokens/s, ms per
               step, peak memory.
 8. async   -- MonitorSession in async mode, after the serve phases:
-              granite-8b (36 layers, the serve cell's traffic) under the
+              granite-8b (36 layers, 32 of the serve cell's 64 steps) under the
               stream transport (a CUDA side stream) at max_staleness 0
               and 2, thread at 2, mock_remote at 4 (20-ms simulated round
               trip) and inproc at 0, each against the phase's own sync run
@@ -91,11 +91,31 @@ Phases, each printing its own lines:
               process's peak memory, the card's busy share (nvidia-smi's
               utilization.gpu).  Then ``python -m repro_torch.launch.server``
               itself at SMOKE size and a wire session against it.
+10. fleet-shm -- the serve cell (granite-8b, 36 layers, 64 steps) with
+              every server at slots == B: a CorrectionServer(shm=True)
+              child, shm at max_staleness 0 and 2 and a wire session
+              against it at 0 (u, triggers, server_pos, bytes bitwise the
+              phase's own sync, fhat too at 0, fhat <= u, every shm reply
+              over the rings, no arena file left); a FleetSupervisor of
+              three ``launch.server --full`` subprocesses behind its
+              router: a k = 2 fleet: session whose server is SIGKILLed
+              after step 24 and a k = 0 session whose server is drained
+              there, each finishing on a sibling (the same gates, fhat
+              bitwise at 0, one failover, no stream dropped, the drained
+              server retired) with the failover's timing; the launchers as
+              subprocesses at SMOKE size (serve --engine step, --engine
+              collab --transport shm against launch.server --transport
+              shm, launch.fleet with a fleet: client, launch.train on
+              granite-8b and zamba2-7b), each exiting 0; and the ungated
+              serve step (launch/steps.py::make_serve_step) at full width
+              beside the gated sync session: ms/step, tokens/s, launches
+              per step.
 
 --profile adds torch.profiler breakdowns of one sync and one scan run, of
 one train step per model, of a train_paper step and of a generate step
 per model, and the CUDA stream ids of the serve kernels in a short async
-stream run per model (the phases run in the order 1-4, 8, 9, 5-7).  Then
+stream run per model (the phases run in the order 1-4, 8, 9, 10, 5-7).
+Then
 one JSON line of the kernels, the
 card's name and power limit, and a last line {"ok": true, "device":
 {...}}.  Any failed check raises, so the script exits non-zero and
@@ -114,6 +134,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1600,8 +1621,12 @@ POLICY_TARGET = 0.05
 WITNESS_SLEEP_S, WITNESS_STEPS = 1.0, 8
 # zamba2's async run (and its own sync run) serves 16 of the serve cell's
 # 64 steps: a zamba2 sync step costs ~3x granite's, and chip_smoke keeps
-# within its time budget with the serve-wire phase (32 steps before it)
+# within its time budget with the serve-wire phase (32 steps before it).
+# granite's async runs serve 32 of the 64 (64 before the fleet-shm phase:
+# on the H100 that phase takes ~150 s, and the granite async runs took
+# ~270 s at 64 steps)
 HYBRID_ASYNC_STEPS = 16
+GRANITE_ASYNC_STEPS = 32
 
 
 def sleep_cycles(torch, seconds: float) -> int:
@@ -1629,7 +1654,8 @@ def phase_async(torch, dev, args, cfg, full: bool) -> dict:
     from repro_torch.serving import MonitorSession, SessionConfig
     from repro_torch.serving.async_rpc import StreamWorker
     from repro_torch.serving.collaborative import CollaborativeEngine
-    B, ML, S = BATCH, MAX_LEN, (STEPS if full else HYBRID_ASYNC_STEPS)
+    B, ML, S = BATCH, MAX_LEN, (GRANITE_ASYNC_STEPS if full
+                                else HYBRID_ASYNC_STEPS)
     model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(args.seed),
                            dev)
     toks = np.random.default_rng(args.seed).integers(0, cfg.vocab_size, (B, S))
@@ -1980,8 +2006,9 @@ def async_extras(torch, dev, model, cfg, toks, sync, serve, line, total,
     check(np.array_equal(out["u"], sync["u"]), "cascade: u equal to sync")
     check(out["escalated"].any(), "cascade: some rows escalate")
     print(f"{label} cascade (edge -> regional -> central, inproc tiers, "
-          f"escalate above {esc:.4f}): {BATCH * STEPS / dt:.1f} tokens/s, "
-          f"{dt / STEPS * 1e3:.2f} ms/step; {rep['escalated_steps']} "
+          f"escalate above {esc:.4f}): {BATCH * toks.shape[1] / dt:.1f} "
+          f"tokens/s, {dt / toks.shape[1] * 1e3:.2f} ms/step; "
+          f"{rep['escalated_steps']} "
           f"escalated stream-steps; tier-1 bytes {rep['tier1']['bytes_sent']}"
           f" of {rep['tier1']['bytes_baseline']}, tier-2 bytes "
           f"{rep['tier2']['bytes_sent']} of {rep['tier2']['bytes_baseline']};"
@@ -2064,7 +2091,7 @@ class AnyEvent:
 
 def wire_server_child(cfg, device: str, seed: int, slots: int, max_len: int,
                       uds, ready: str, stats: str, out: str, stop,
-                      reset) -> None:
+                      reset, shm: bool = False) -> None:
     """The serve-wire cell's correction server, in a process of its own
     (started with multiprocessing's spawn: fork is wrong once CUDA is
     initialised): ``cfg`` from the client's seed on ``device``, with the
@@ -2073,7 +2100,8 @@ def wire_server_child(cfg, device: str, seed: int, slots: int, max_len: int,
     ``stats`` and, at exit, its launch counts, stats and peak device
     memory to ``out``.  When ``reset`` is set (the client's warm-up is
     over) it zeroes its launch counts and clears ``reset``, so the counts
-    cover the main path's runs only."""
+    cover the main path's runs only.  ``shm``: the server offers
+    shared-memory arenas (the fleet-shm cell)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch import kernels
@@ -2088,7 +2116,7 @@ def wire_server_child(cfg, device: str, seed: int, slots: int, max_len: int,
     model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(seed), dev)
     srv = CorrectionServer(cfg, model, slots=slots, max_len=max_len, uds=uds,
                            device=dev, tracker=JsonFileTracker(stats),
-                           stats_interval_s=0.1)
+                           stats_interval_s=0.1, shm=shm)
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2479,6 +2507,487 @@ def wire_launcher_smoke(torch, dev) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 10
+# the fleet-shm cell: the serve cell's model and traffic (granite-8b, 36
+# layers) with the server half on shared-memory rings and behind a fleet
+# router.  Every server leases exactly BATCH rows (slots == B), so a replay
+# has the sync engine's shapes and the runs are held bitwise to sync
+SHM_STALENESS = (0, 2)
+FLEET_SERVERS = 3        # one killed, one drained, one to finish on
+FAILOVER_STEP = 24       # the SIGKILL (k = 2) and the drain (k = 0) follow it
+FLEET_WARMUP_STEPS = 4
+LAUNCHER_TRAIN_STEPS = 3
+FLEET_SERVER_ARGS = ("--full",)   # the launcher serves FULL on request
+SHORT_PATH = 70          # socket paths below sockaddr_un's 108 bytes
+
+
+def short_tmpdir(tag: str) -> str:
+    """A fresh directory whose socket paths fit sockaddr_un: under the
+    temporary directory, else under the checkout."""
+    import tempfile
+    for base in (None, str(ROOT)):
+        path = tempfile.mkdtemp(prefix=tag, dir=base)
+        if len(path.encode()) < SHORT_PATH:
+            return path
+        Path(path).rmdir()
+    raise RuntimeError("no directory with a short enough path for sockets")
+
+
+def phase_fleet_shm(torch, dev, args, cfg) -> dict:
+    """fleet-shm: ``cfg`` (granite-8b FULL), the serve cell's traffic.
+    (1) A CorrectionServer(shm=True) child at slots == B: shm at k = 0 and
+    2 and a wire session against the same server at k = 0, held to the
+    phase's own sync run (u, triggers, server_pos, bytes bitwise; fhat
+    bitwise at k = 0; fhat <= u), no arena left.  (2) FleetSupervisor with
+    FLEET_SERVERS ``launch.server`` subprocesses (--full, slots == B, no
+    respawn): a k = 2 fleet: session whose server is SIGKILLed after
+    FAILOVER_STEP, then a k = 0 session whose server is drained there; each
+    finishes on a sibling.  (3) the launchers at SMOKE size.  (4) the
+    ungated serve step (make_serve_step) at full width beside the gated
+    sync session.  Returns the launch counts of every process's main-path
+    runs."""
+    import multiprocessing
+    import os
+    import shutil
+    from repro_torch import kernels
+    from repro_torch.configs.paper_synthetic import SERVING_TRIGGER_RATE
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.launch import server as launcher
+    from repro_torch.serving import MonitorSession, SessionConfig, shm
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    from repro_torch.serving.fleet import FleetSupervisor
+    B, ML, S = BATCH, MAX_LEN, STEPS
+    label = f"[fleet-shm] {cfg.name}"
+    total = dict.fromkeys(SERVE_KERNELS, 0)
+    tmp = short_tmpdir("fs_")
+    # the launcher's servers init from seed 0: the client does too
+    seed = 0
+    ready, stats, out = (os.path.join(tmp, n)
+                         for n in ("ready", "stats.json", "server.json"))
+    ctx = multiprocessing.get_context("spawn")
+    stop, reset = ctx.Event(), ctx.Event()
+    child = ctx.Process(target=wire_server_child,
+                        args=(cfg, str(dev), seed, B, ML,
+                              os.path.join(tmp, "s.sock"), ready, stats, out,
+                              stop, reset, True))
+    t_start = time.perf_counter()
+    child.start()
+    model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    toks = np.random.default_rng(args.seed).integers(0, cfg.vocab_size,
+                                                     (B, S))
+    probe = MonitorSession.open(model, cfg, batch=B, max_len=ML, device=dev,
+                                config=SessionConfig(mode="scan")).run(toks)
+    thr = float(np.quantile(probe["u"], 1.0 - SERVING_TRIGGER_RATE))
+    cfg_thr = cfg.replace(monitor=cfg.monitor.__class__(
+        **{**cfg.monitor.__dict__, "threshold": thr, "trigger_margin": 0.0}))
+    s_max = cfg.monitor.s
+
+    def serve(config, steps=S, at=None):
+        """One run from a fresh engine, step by step: (result, seconds,
+        the engine's server_pos, per-step seconds).  ``at[i](engine)``
+        runs after step i."""
+        gc.collect()
+        eng = CollaborativeEngine(model, cfg_thr, B, ML, device=dev)
+        torch.cuda.synchronize()
+        times, outs = [], []
+        t0 = time.perf_counter()
+        with eng.session(config) as sess:
+            for i in range(steps):
+                t1 = time.perf_counter()
+                outs.append(sess.step(toks[:, i]))
+                times.append(time.perf_counter() - t1)
+                if at is not None and i in at:
+                    at[i](eng)
+        rep = sess.report()   # after the close drained the pipeline
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        r = {k: np.stack([o[k] for o in outs], 1)
+             for k in ("u", "fhat", "triggered")}
+        r["comms"] = rep
+        return r, dt, eng.server_pos.copy(), times
+
+    def tokens_line(name, r, dt, steps=S):
+        return (f"{label} {name}: {B * steps / dt:.1f} tokens/s, "
+                f"{dt / steps * 1e3:.2f} ms/step; trigger rate "
+                f"{r['comms']['trigger_rate']:.3f}")
+
+    def check_like_sync(name, r, pos, fhat_bitwise):
+        check(r["u"].shape == (B, S), f"{name}: every stream served every "
+              "step (no stream dropped)")
+        for key in ("u", "triggered") + (("fhat",) if fhat_bitwise else ()):
+            check(np.array_equal(r[key], sync[key]),
+                  f"{name}: {key} bitwise equal to sync")
+        check((r["fhat"] <= r["u"]).all(), f"{name}: fhat <= u")
+        corr = r["u"] - r["fhat"]
+        check(((corr >= 0) & (corr <= s_max)).all(),
+              f"{name}: every correction in [0, s]")
+        check(np.array_equal(pos, sync_pos),
+              f"{name}: server_pos equal to sync")
+        check(np.array_equal(r["comms"]["per_stream"]["bytes_sent"],
+                             sync["comms"]["per_stream"]["bytes_sent"]),
+              f"{name}: per-stream bytes equal to sync")
+        check(r["comms"]["async"]["inflight_now"] == 0,
+              f"{name}: nothing in flight at close")
+
+    def rtt_line(name, r, plane):
+        p = r["comms"][plane]
+        return (f"{label} {name} {plane} RTT: mean "
+                f"{p['rtt_mean_s'] * 1e3:.2f} ms, max "
+                f"{p['rtt_max_s'] * 1e3:.2f} ms over {p['replies']} replies; "
+                f"{plane} tx {p['tx_bytes']} B, rx {p['rx_bytes']} B")
+
+    # -- (1) shm against a child server -------------------------------------
+    try:
+        deadline = time.monotonic() + 600
+        while not os.path.exists(ready):
+            check(child.is_alive(), "the shm server process is alive")
+            check(time.monotonic() < deadline,
+                  "the shm server process listens within 600 s")
+            time.sleep(0.1)
+        address, digest = launcher.read_ready(ready)
+        check(digest == launcher.weights_digest(model),
+              "shm server: weights digests equal")
+        print(f"{label}: shm server process ready in "
+              f"{time.perf_counter() - t_start:.1f} s at {address}, {B} "
+              f"slots (= B)")
+        serve(SessionConfig(mode="async", transport=f"shm:{address}",
+                            max_staleness=2), steps=4)   # warm-up
+        kernels.reset_launch_counts()
+        reset.set()
+        deadline = time.monotonic() + 60
+        while reset.is_set():
+            check(child.is_alive() and time.monotonic() < deadline,
+                  "the shm server resets its launch counts within 60 s")
+            time.sleep(0.01)
+        sync, dt, sync_pos, _ = serve(SessionConfig())
+        sync_ms = dt / S * 1e3
+        sync_counts = kernels.launch_counts()
+        print(tokens_line("sync (this phase's own)", sync, dt)
+              + f"; launches per step "
+              f"{ {k: sync_counts[k] / S for k in SERVE_KERNELS} }")
+        check(0.0 < sync["triggered"].mean() < 1.0, "mixed triggers")
+        for kind, k in (("shm", 0), ("wire", 0), ("shm", 2)):
+            name = f"{kind} k={k}"
+            r, dt, pos, _ = serve(SessionConfig(
+                mode="async", transport=f"{kind}:{address}", max_staleness=k))
+            check_like_sync(name, r, pos, fhat_bitwise=k == 0)
+            if kind == "shm":
+                check(r["comms"]["shm"]["replies"]
+                      == r["comms"]["async"]["requests"] > 0,
+                      f"{name}: every reply over the rings")
+                check(r["comms"]["wire"]["replies"] == 0,
+                      f"{name}: no reply over the socket")
+            else:
+                check("shm" not in r["comms"],
+                      f"{name}: a wire client of an shm server stays plain")
+            print(tokens_line(name, r, dt))
+            print(rtt_line(name, r, kind))
+        for key, n in kernels.launch_counts().items():
+            if key in total:
+                total[key] += n
+    finally:
+        stop.set()
+        child.join(timeout=120)
+        if child.is_alive():
+            child.kill()
+            child.join(timeout=30)
+    check(child.exitcode == 0, f"the shm server process exits cleanly "
+          f"(exit code {child.exitcode})")
+    with open(out) as fh:
+        srv = json.load(fh)
+    st = srv["stats"]
+    for key in SERVE_KERNELS:
+        check(srv["launches"][key] > 0, f"the shm server launched {key}")
+        total[key] += srv["launches"][key]
+    check(st["shm_sessions"] == 3, f"the shm server's shm sessions "
+          f"({st['shm_sessions']}: the warm-up and two runs)")
+    print(f"{label}: shm server process launches in the main path's runs "
+          f"{ {k: srv['launches'][k] for k in SERVE_KERNELS} }; "
+          f"{st['shm_sessions']} shm sessions, ring rx "
+          f"{st['shm_bytes_rx']} B, tx {st['shm_bytes_tx']} B, socket rx "
+          f"{st['bytes_rx']} B, tx {st['bytes_tx']} B; replay "
+          f"{st['replay_s_mean'] * 1e3:.2f} ms mean; peak device memory "
+          f"{srv['peak_gib'] or 0:.2f} GiB")
+    check(shm.stray_arenas() == [], "no arena file left after close")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (2) a fleet of launcher subprocesses, kill and drain ------------------
+    root = short_tmpdir("fl_")
+    t0 = time.perf_counter()
+    sup = FleetSupervisor(
+        cfg.name, n_servers=FLEET_SERVERS, slots=B, max_len=ML,
+        backend="subprocess", root=root, respawn=False,
+        heartbeat_timeout_s=120.0, device=str(dev),
+        server_args=FLEET_SERVER_ARGS, spawn_timeout_s=600.0)
+    beat = threading.Event()
+    ticker = threading.Thread(target=sup.run_forever, args=(beat,),
+                              daemon=True)
+    fleet = f"fleet:{sup.router_address}"
+
+    def launches(h):
+        # the supervisor's last scrape of the server's heartbeat: it
+        # outlives the process (a drained server removes its file at exit)
+        return dict(h.stats.get("kernel_launches", {}))
+
+    try:
+        sup.start(wait=True)
+        ticker.start()
+        deadline = time.monotonic() + 120
+        while len(sup.live_servers()) < FLEET_SERVERS:
+            check(time.monotonic() < deadline,
+                  f"{FLEET_SERVERS} fleet servers live within 120 s")
+            time.sleep(0.05)
+        for h in sup.servers.values():
+            check(launcher.read_ready(h.ready_file)[1]
+                  == launcher.weights_digest(model),
+                  f"fleet server {h.name}: weights digests equal")
+        print(f"{label}: {FLEET_SERVERS} launcher subprocesses (--full, "
+              f"{B} slots) live behind the router in "
+              f"{time.perf_counter() - t0:.1f} s, weights digests equal")
+        for h in sup.servers.values():   # a direct warm-up of each server
+            serve(SessionConfig(mode="async", transport=f"wire:{h.address}",
+                                max_staleness=2), steps=FLEET_WARMUP_STEPS)
+        time.sleep(1.0)   # a heartbeat after the warm-ups, scraped
+        base = {h.name: launches(h) for h in sup.servers.values()}
+        gone = {}
+
+        def victim(eng):
+            return next(h for h in sup.servers.values()
+                        if h.address == eng._worker.server_address)
+
+        marks = {}
+
+        def timed(worker):
+            """Stamp the failover's start and end and the first reply
+            after it (the worker's own methods, wrapped on the instance)."""
+            failover, to_reply = worker._failover, worker._to_reply
+
+            def _failover(why):
+                marks["start"] = time.perf_counter()
+                failover(why)
+                marks["end"] = time.perf_counter()
+
+            def _to_reply(msg):
+                if "end" in marks and "reply" not in marks:
+                    marks["reply"] = time.perf_counter()
+                return to_reply(msg)
+            worker._failover, worker._to_reply = _failover, _to_reply
+
+        def kill(eng):
+            marks.clear()
+            timed(eng._worker)
+            gone["kill"] = victim(eng).name
+            marks["act"] = time.perf_counter()
+            victim(eng).kill()           # SIGKILL: no GOAWAY, no BYE
+
+        def drain(eng):
+            marks.clear()
+            timed(eng._worker)
+            gone["drain"] = victim(eng).name
+            marks["act"] = time.perf_counter()
+            sup.drain(gone["drain"])     # SIGUSR1: GOAWAY, then exit
+        runs = (("fleet k=2, SIGKILL", 2, kill, False),
+                ("fleet k=0, drain", 0, drain, True))
+        for name, k, act, bitwise in runs:
+            r, dt, pos, times = serve(
+                SessionConfig(mode="async", transport=fleet,
+                              max_staleness=k), at={FAILOVER_STEP: act})
+            check_like_sync(name, r, pos, fhat_bitwise=bitwise)
+            fo = r["comms"].get("failover", {})
+            check(fo.get("failovers") == 1, f"{name}: one failover")
+            check(all(k in marks for k in ("act", "start", "end", "reply")),
+                  f"{name}: the failover ran and a reply followed it")
+            print(tokens_line(name, r, dt) + f"; failover: "
+                  f"{fo['replay_requests']} replay and "
+                  f"{fo['resent_requests']} resent requests, "
+                  f"{fo['replayed_tokens']} tokens replayed, tx "
+                  f"{fo['tx_bytes']} B, rx {fo['rx_bytes']} B; it began "
+                  f"{(marks['start'] - marks['act']) * 1e3:.2f} ms after "
+                  f"the {name.split(', ')[1]}, re-HELLO and replay sent in "
+                  f"{(marks['end'] - marks['start']) * 1e3:.2f} ms, first "
+                  f"reply {(marks['reply'] - marks['end']) * 1e3:.2f} ms "
+                  f"later ({(marks['reply'] - marks['act']) * 1e3:.2f} ms "
+                  f"in all); median step {float(np.median(times)) * 1e3:.2f}"
+                  f" ms, slowest {max(times) * 1e3:.2f} ms")
+            print(rtt_line(name, r, "wire"))
+        h = sup.servers[gone["drain"]]
+        deadline = time.monotonic() + 120
+        while h.state != "stopped":
+            check(time.monotonic() < deadline, f"the drained server retires "
+                  f"(state {h.state})")
+            time.sleep(0.05)
+        check(sup.stats["retired"] == 1 and sup.stats["respawns"] == 0,
+              "the drained server is retired, not replaced")
+        time.sleep(1.0)   # the survivors' last heartbeats, scraped
+        for h in sup.servers.values():
+            now = launches(h)
+            for key in SERVE_KERNELS:
+                total[key] += now.get(key, 0) - base[h.name].get(key, 0)
+        print(f"{label}: fleet stats {sup.stats}; server states "
+              f"{ {h.name: h.state for h in sup.servers.values()} }")
+    finally:
+        beat.set()
+        if ticker.is_alive():
+            ticker.join(timeout=60)
+        sup.close()
+    shutil.rmtree(root, ignore_errors=True)
+    check(shm.stray_arenas() == [], "no arena file left after the fleet")
+
+    # -- (4) the ungated serve step at full width ------------------------------
+    from repro_torch.core.decomposition import edge_arch
+    from repro_torch.launch.steps import EDGE_CACHE_LEN, make_serve_step
+    from repro_torch.models import api as model_api
+    step = make_serve_step(cfg_thr)
+    stream = torch.as_tensor(toks, device=dev)
+    for rep_i in range(2):   # a warm-up pass, then the timed pass
+        server_cache = model_api.init_cache(cfg_thr, B, ML, dev)
+        edge_cache = model_api.init_cache(edge_arch(cfg_thr), B,
+                                          min(ML, EDGE_CACHE_LEN), dev)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks, fhats, us = [], [], []
+        for t in range(S if rep_i else 4):
+            o = step(model, server_cache, edge_cache, stream[:, t], t)
+            masks.append(o["mask"])
+            fhats.append(o["fhat"])
+            us.append(o["u"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for key in SERVE_KERNELS:
+        total[key] += counts[key]
+    u = torch.stack(us, 1).cpu().numpy()
+    fhat = torch.stack(fhats, 1).cpu().numpy()
+    mask = torch.stack(masks, 1).cpu().numpy() > 0
+    du = float(np.abs(u - sync["u"]).max())
+    check(du <= TOL_E2E["bfloat16"], f"ungated step: u within 2e-2 of the "
+          f"gated session's (the same edge tower and head; {du:.3e})")
+    band = np.abs(sync["u"] - thr) <= TOL_E2E["bfloat16"]
+    check(np.array_equal(mask[~band], sync["triggered"][~band]),
+          "ungated step: the mask is the gated session's trigger trace "
+          "outside the tie band")
+    check((fhat <= u).all() and np.isfinite(fhat).all(),
+          "ungated step: fhat <= u, finite")
+    check(counts["monitor_combine"] == S, "ungated step: one monitor_combine "
+          "launch a step")
+    print(f"{label} ungated serve step (make_serve_step: the server decodes "
+          f"every token): {B * S / dt:.1f} tokens/s, {dt / S * 1e3:.2f} "
+          f"ms/step; launches per step "
+          f"{ {k: counts[k] / S for k in SERVE_KERNELS} }; beside the gated "
+          f"sync session's {sync_ms:.2f} ms/step and launches per step "
+          f"{ {k: sync_counts[k] / S for k in SERVE_KERNELS} }; u max |diff| "
+          f"from the session's {du:.3e}, {int(band.sum())} of {band.size} "
+          "entries in the tie band")
+    del model, step, server_cache, edge_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    launcher_smoke(str(dev))
+    print(f"{label}: this phase's main-path launches over every process "
+          f"(the shm server's, the fleet servers' from their heartbeats, "
+          f"the client's) {total}")
+    return total
+
+
+def launcher_smoke(dev: str) -> None:
+    """The launchers as a user runs them on ``dev``, at SMOKE size:
+    ``launch.serve --engine step``; ``--engine collab --transport shm``
+    against ``launch.server --transport shm``; ``launch.fleet`` with a
+    ``fleet:`` client; ``launch.train`` for LAUNCHER_TRAIN_STEPS steps with
+    a checkpoint, on granite-8b and on zamba2-7b.  Each must exit 0 and
+    print what the reference prints."""
+    import os
+    import shutil
+    import signal
+    from repro_torch.launch import server as launcher
+    tmp = short_tmpdir("ls_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    label = "[fleet-shm] launchers"
+
+    def start(module, *argv):
+        return subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.launch.{module}", *argv,
+             "--device", dev],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def finish(proc, what, want, timeout=600):
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate(timeout=30)
+        check(proc.returncode == 0, f"{what} exits 0 (exit code "
+              f"{proc.returncode}; {stderr[-1500:]})")
+        for text in want:
+            check(text in stdout, f"{what} prints {text!r}")
+        tail = [x for x in stdout.splitlines() if x.strip()][-3:]
+        print(f"{label}: {what}: exit 0; " + " | ".join(tail))
+        return stdout
+
+    uds, ready = os.path.join(tmp, "s.sock"), os.path.join(tmp, "ready")
+    t0 = time.perf_counter()
+    srv = launcher.spawn_subprocess(
+        "granite-8b", uds=uds, slots=4, max_len=80, ready_file=ready,
+        wait=False, extra_args=("--transport", "shm", "--idle-exit-s", "60",
+                                "--device", dev))
+    fleet_ready = os.path.join(tmp, "fleet.ready")
+    fleet = start("fleet", "--arch", "granite-8b", "--n-servers", "2",
+                  "--slots", "4", "--max-len", "80", "--root", tmp,
+                  "--ready-file", fleet_ready, "--log-interval-s", "600")
+    step = start("serve", "--arch", "granite-8b", "--engine", "step")
+    trains = {arch: start("train", "--arch", arch, "--smoke", "--steps",
+                          str(LAUNCHER_TRAIN_STEPS), "--batch", "2",
+                          "--ckpt-dir", os.path.join(tmp, f"ck_{arch}"))
+              for arch in ("granite-8b", "zamba2-7b")}
+    try:
+        finish(step, "launch.serve --engine step",
+               ("64 steps x batch 4:", "ms/step", "trigger rate"))
+        for arch, proc in trains.items():
+            finish(proc, f"launch.train --arch {arch}",
+                   (f"arch {arch}", "step     0  loss",
+                    f"step     {LAUNCHER_TRAIN_STEPS - 1}  loss",
+                    "checkpoint -> "))
+            check(os.path.exists(os.path.join(tmp, f"ck_{arch}",
+                                              "params.npz")),
+                  f"launch.train --arch {arch} wrote its checkpoint")
+        launcher.wait_ready(srv, ready, 600)
+        finish(start("serve", "--arch", "granite-8b", "--engine", "collab",
+                     "--mode", "async", "--transport", "shm", "--address",
+                     uds, "--max-staleness", "2"),
+               "launch.serve --engine collab --transport shm",
+               ("async collab engine: 64 steps x batch 4:",
+                "shm rings (measured):"))
+        deadline = time.monotonic() + 600
+        while not os.path.exists(fleet_ready):
+            check(fleet.poll() is None and time.monotonic() < deadline,
+                  "launch.fleet is up within 600 s")
+            time.sleep(0.1)
+        router = open(fleet_ready).read().strip()
+        finish(start("serve", "--arch", "granite-8b", "--engine", "collab",
+                     "--mode", "async", "--transport", "wire", "--address",
+                     f"fleet:{router}"),
+               "launch.serve over fleet:", ("wire (measured):",))
+        fleet.send_signal(signal.SIGTERM)
+        finish(fleet, "launch.fleet (SIGTERM)",
+               ("fleet: all 2 servers ready", "fleet summary:"))
+    finally:
+        for proc in (srv, fleet, step, *trains.values()):
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{label}: all exit 0 in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2523,7 +3032,14 @@ def main(argv=None) -> int:
         "zamba2 shared": (TRAIN_BATCH, TRAIN_SEQ, zfull.n_heads,
                           zfull.n_kv_heads, zfull.resolved_head_dim, 0)}
 
+    lap = [time.perf_counter()]
+
+    def took(name):
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - lap[0]:.1f} s")
+        lap[0] = now
     phase_build()
+    took("build")
     records = phase_kernels(torch, dev, args.seed, MAX_LEN, srv, edge,
                             shared)
     records["flash_attention"] = phase_flash(torch, dev, args.seed,
@@ -2531,8 +3047,10 @@ def main(argv=None) -> int:
     records["ssd_scan"] = phase_ssd(torch, dev, args.seed, ssd_shape)
     gc.collect()
     torch.cuda.empty_cache()
+    took("kernels")
     phase_small(torch, dev, args.seed)
     phase_small_train(torch, dev, args.seed)
+    took("small")
     # launches on the main paths: each path's run counts from 0, and a
     # kernel's count is the sum over the paths that run it
     counts = dict.fromkeys(records, 0)
@@ -2542,17 +3060,26 @@ def main(argv=None) -> int:
             counts[name] += run[name]
         gc.collect()  # the serve phase's model and sessions are gone
         torch.cuda.empty_cache()
+    took("serve")
     for cfg, every_run in ((full, True), (zfull, False)):
         run = phase_async(torch, dev, args, cfg, every_run)
         for name in SERVE_KERNELS:
             counts[name] += run[name]
         gc.collect()
         torch.cuda.empty_cache()
+    took("async")
     run = phase_wire(torch, dev, args, full)
     for name in SERVE_KERNELS:
         counts[name] += run[name]
     gc.collect()
     torch.cuda.empty_cache()
+    took("serve-wire")
+    run = phase_fleet_shm(torch, dev, args, full)
+    for name in SERVE_KERNELS:
+        counts[name] += run[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    took("fleet-shm")
     for cfg, n_full, lr_witness in (
             (full.replace(n_layers=TRAIN_LAYERS), full.n_layers, True),
             (zfull.replace(n_layers=HYBRID_TRAIN_LAYERS), zfull.n_layers,
@@ -2562,12 +3089,15 @@ def main(argv=None) -> int:
             counts[name] += run[name]
         gc.collect()
         torch.cuda.empty_cache()
+    took("train")
     phase_paper(torch, dev, args.seed, args.profile)
+    took("paper")
     for cfg in (full, zfull):
         counts["decode_attention"] += phase_generate(
             torch, dev, args, cfg)["decode_attention"]
         gc.collect()
         torch.cuda.empty_cache()
+    took("generate")
     for name, rec in records.items():
         check(counts[name] > 0, f"kernel {name} launched on a main path")
         rec["launches"] = counts[name]

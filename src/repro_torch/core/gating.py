@@ -77,8 +77,10 @@ class CommsMeter:
     The ``wire`` transport (``async_rpc.SocketWorker``) meters what it
     measures on the socket: bytes written and read (frames with their
     headers, the handshake included) and each request's round trip.
-    This is the reference's meter without its shm and failover counters,
-    which belong to transports not ported yet (ROADMAP queue 1, item 6).
+    The ``shm`` transport (``async_rpc.ShmWorker``) meters the frames its
+    rings carry the same way, in a section of their own, and a fleet
+    session's failover (``SocketWorker._failover``) charges the bytes and
+    tokens of its recovery to the ``failover`` section, not to ``wire``.
     """
 
     bytes_per_request: int
@@ -103,6 +105,19 @@ class CommsMeter:
     wire_rtt_s: float = 0.0    # sum of measured dispatch -> reply round trips
     wire_rtt_max_s: float = 0.0
     wire_replies: int = 0
+    # -- shm transport (filled by ShmWorker): ring-plane bytes and RTTs -----
+    shm_tx_bytes: int = 0      # frame bytes written into the c->s ring
+    shm_rx_bytes: int = 0      # frame bytes drained from the s->c ring
+    shm_rtt_s: float = 0.0     # sum of measured dispatch -> reply round trips
+    shm_rtt_max_s: float = 0.0
+    shm_replies: int = 0
+    # -- fleet failover (filled by SocketWorker when it migrates) -----------
+    failovers: int = 0               # completed re-HELLO + replay migrations
+    failover_tx_bytes: int = 0       # handshake + replay + resend tx bytes
+    failover_rx_bytes: int = 0       # bytes read during recovery
+    failover_replayed_tokens: int = 0  # tokens re-shipped (paid once before)
+    failover_replay_requests: int = 0  # synthetic recovery requests sent
+    failover_resent_requests: int = 0  # real in-flight requests re-sent
 
     def __post_init__(self) -> None:
         if self.tokens_sent is None:
@@ -117,6 +132,8 @@ class CommsMeter:
         self._per_stream_used = False
         self._async_used = False
         self._wire_used = False
+        self._shm_used = False
+        self._failover_used = False
         self._inflight_reqs = 0
 
     def update(self, n_triggered: int, n_total: int) -> None:
@@ -194,6 +211,52 @@ class CommsMeter:
         self.wire_rtt_s += float(dt)
         self.wire_rtt_max_s = max(self.wire_rtt_max_s, float(dt))
 
+    # -- shm transport (same-host rings; serving/shm.py): ring traffic is
+    # metered like socket traffic, so the byte counts stay honest ---------
+    def record_shm_tx(self, nbytes: int) -> None:
+        """``nbytes`` of wire-codec frames written into the c->s ring."""
+        self._shm_used = True
+        self.shm_tx_bytes += int(nbytes)
+
+    def record_shm_rx(self, nbytes: int) -> None:
+        self._shm_used = True
+        self.shm_rx_bytes += int(nbytes)
+
+    def record_shm_rtt(self, dt: float) -> None:
+        """One measured dispatch -> reply round trip over the ring pair."""
+        self._shm_used = True
+        self.shm_replies += 1
+        self.shm_rtt_s += float(dt)
+        self.shm_rtt_max_s = max(self.shm_rtt_max_s, float(dt))
+
+    # -- fleet failover (recovery bytes apart from the steady state) --------
+    def record_failover(self) -> None:
+        """One migration: a re-HELLO at another server plus the replay
+        that rebuilds the lease from the client's token history."""
+        self._failover_used = True
+        self.failovers += 1
+
+    def record_failover_tx(self, nbytes: int) -> None:
+        """Bytes the recovery wrote (handshake, replay requests, resent
+        requests): charged here, not to ``wire``."""
+        self._failover_used = True
+        self.failover_tx_bytes += int(nbytes)
+
+    def record_failover_rx(self, nbytes: int) -> None:
+        self._failover_used = True
+        self.failover_rx_bytes += int(nbytes)
+
+    def record_failover_tokens(self, n_tokens: int, *,
+                               resent: bool = False) -> None:
+        """``n_tokens`` re-shipped by the recovery (each was paid once in
+        the wire bucket when first dispatched)."""
+        self._failover_used = True
+        self.failover_replayed_tokens += int(n_tokens)
+        if resent:
+            self.failover_resent_requests += 1
+        else:
+            self.failover_replay_requests += 1
+
     @property
     def overlap_ratio(self) -> float:
         """Share of request wall time (server compute + network) hidden
@@ -251,5 +314,22 @@ class CommsMeter:
                 "replies": self.wire_replies,
                 "rtt_mean_s": self.wire_rtt_s / max(self.wire_replies, 1),
                 "rtt_max_s": self.wire_rtt_max_s,
+            }
+        if self._shm_used:  # only when the shm rings carried frames
+            rep["shm"] = {
+                "tx_bytes": self.shm_tx_bytes,
+                "rx_bytes": self.shm_rx_bytes,
+                "replies": self.shm_replies,
+                "rtt_mean_s": self.shm_rtt_s / max(self.shm_replies, 1),
+                "rtt_max_s": self.shm_rtt_max_s,
+            }
+        if self._failover_used:  # only when a fleet migration happened
+            rep["failover"] = {
+                "failovers": self.failovers,
+                "tx_bytes": self.failover_tx_bytes,
+                "rx_bytes": self.failover_rx_bytes,
+                "replayed_tokens": self.failover_replayed_tokens,
+                "replay_requests": self.failover_replay_requests,
+                "resent_requests": self.failover_resent_requests,
             }
         return rep

@@ -16,7 +16,9 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.server \\
           --uds /tmp/corr.sock --slots 16 --max-len 128
 
 then serve against it with
-``SessionConfig(mode="async", transport="wire:/tmp/corr.sock")``.
+``SessionConfig(mode="async", transport="wire:/tmp/corr.sock")``; with
+``--transport shm`` a same-host client of ``"shm:/tmp/corr.sock"`` moves
+its data frames through a shared-memory ring pair.
 Without ``--device`` the server runs on the card, and raises without one.
 """
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.serving.tracker import JsonFileTracker
 
 
 def resolve_config(name: str, smoke: bool = True):
@@ -123,10 +126,24 @@ def wait_ready(proc: "subprocess.Popen", ready_file: str,
         time.sleep(0.05)
 
 
+class LaunchesTracker(JsonFileTracker):
+    """The heartbeat with this process's kernel launch counts added
+    (``kernel_launches``: kernel name -> launches since the start)."""
+
+    def log(self, metrics, *, step=None):
+        from repro_torch import kernels
+        super().log({**metrics, "kernel_launches": kernels.launch_counts()},
+                    step=step)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=config_names())
     ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", action="store_true",
+                    help="serve the FULL config (--smoke, store_true with "
+                         "default True as in the reference, cannot turn "
+                         "SMOKE off)")
     ap.add_argument("--uds", default=None, help="Unix-domain socket path")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=None,
@@ -138,8 +155,9 @@ def main(argv=None) -> None:
                     help="disable request coalescing server-wide "
                          "(per-request replays)")
     ap.add_argument("--transport", choices=("wire", "shm"), default="wire",
-                    help="'shm' (shared-memory rings) is not ported yet: "
-                         "the server raises")
+                    help="'shm' also offers same-host clients a shared-"
+                         "memory ring arena on the HELLO handshake (UDS "
+                         "only; wire clients are still served)")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
                     help="a mesh-sharded super-batch; not ported yet: the "
                          "server raises")
@@ -169,16 +187,15 @@ def main(argv=None) -> None:
     from repro_torch.core.decomposition import init_collab_lm
     from repro_torch.nn.module import resolve_device
     from repro_torch.serving.server import CorrectionServer
-    from repro_torch.serving.tracker import JsonFileTracker
 
     dev = resolve_device(args.device)
-    cfg = resolve_config(args.arch, args.smoke)
+    cfg = resolve_config(args.arch, args.smoke and not args.full)
     params = init_collab_lm(cfg, torch.Generator(dev).manual_seed(0), dev)
     if args.ckpt_dir:
         from repro_torch.training import checkpoint
         checkpoint.load(args.ckpt_dir, params)
         print(f"restored {args.ckpt_dir}", flush=True)
-    tracker = (JsonFileTracker(args.stats_file)
+    tracker = (LaunchesTracker(args.stats_file)
                if args.stats_file else None)
     tracer = None
     if args.trace_file:
@@ -194,7 +211,8 @@ def main(argv=None) -> None:
                            shm=args.transport == "shm", device=dev)
     print(f"correction server: arch={args.arch} slots={args.slots} "
           f"max_len={args.max_len} coalesce={not args.no_coalesce} "
-          f"device={dev} listening on {srv.address}", flush=True)
+          f"transport={args.transport} device={dev} listening on "
+          f"{srv.address}", flush=True)
     if args.ready_file:
         write_ready(args.ready_file, srv.address, weights_digest(params))
 

@@ -21,10 +21,14 @@ Over the ``wire`` transport (``"wire:/tmp/corr.sock"``) the server half
 runs in a correction server of its own (``python -m
 repro_torch.launch.server``, or the JAX package's): sync mode is the
 strict ``max_staleness=0`` boundary, async mode pipelines, and ATTACH /
-DETACH frames mirror membership changes to the server.  The shm and
-fleet transports, mesh sharding and the recompile guard are later slices
-of the port; asking for them raises ``NotImplementedError`` naming their
-ROADMAP item.
+DETACH frames mirror membership changes to the server.  The ``shm``
+transport (``"shm:/tmp/corr.sock"``) moves the data frames into a
+same-host shared-memory ring pair, and a ``fleet:<router>`` address
+(``python -m repro_torch.launch.fleet``) routes the session to the
+least-loaded server of a fleet and fails it over to a sibling when that
+server dies or drains.  Mesh sharding and the recompile guard are later
+slices of the port; asking for them raises ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from typing import Any, Dict, Hashable, Iterable, Iterator, Optional, Tuple, Uni
 
 import numpy as np
 
-from repro_torch.serving.async_rpc import TRANSPORTS, not_ported
+from repro_torch.serving.async_rpc import TRANSPORTS
 
 MODES = ("sync", "scan", "async")
 
@@ -50,11 +54,19 @@ class TransportSpec:
     kind      -- ``inproc`` (compute at dispatch, deterministic),
                  ``stream`` (a CUDA side stream; CUDA engines only),
                  ``thread`` (a worker thread), ``mock_remote`` (thread +
-                 simulated round trip) or ``wire`` (a real socket to a
-                 correction server).  The reference's ``shm`` kind and
-                 ``fleet:`` addresses raise ``NotImplementedError`` naming
-                 their ROADMAP item.
-    address   -- ``wire`` only: the server's UDS path or ``host:port``.
+                 simulated round trip), ``wire`` (a real socket to a
+                 correction server) or ``shm`` (the wire protocol over a
+                 same-host shared-memory ring pair; plain wire, with a
+                 logged reason, when the server is remote or offers no
+                 arena).
+    address   -- ``wire``/``shm``: the server's UDS path or ``host:port``,
+                 or ``fleet:<router>`` to connect through a
+                 ``FleetSupervisor`` router (``python -m
+                 repro_torch.launch.fleet``): the session HELLOs the
+                 router, follows its REDIRECT to the least-loaded live
+                 server, and fails over (re-HELLO and replay) when that
+                 server dies or drains.  ``parse("fleet:...")`` is
+                 shorthand for ``wire`` with a fleet address.
     latency_s -- simulated round trip (stream/thread/mock_remote only; the
                  wire has whatever latency it has).
     coalesce  -- ``wire`` only: False opts out of the server's request
@@ -71,30 +83,28 @@ class TransportSpec:
             raise ValueError(
                 f"unknown transport {self.kind!r}: valid transports are "
                 + ", ".join(repr(t) for t in TRANSPORTS))
-        fleet = str(self.address).startswith("fleet:")
-        if self.kind == "shm" or fleet:
-            raise not_ported("fleet" if fleet else "shm")
-        if self.address is not None and self.kind != "wire":
+        if self.address is not None and self.kind not in ("wire", "shm"):
             raise ValueError(f"transport {self.kind!r} takes no address "
                              "(only 'wire' and 'shm')")
-        if self.kind == "wire" and self.address is None:
+        if self.kind in ("wire", "shm") and self.address is None:
             raise ValueError(
-                "wire transport needs an address (the correction server's "
-                "UDS path or host:port: python -m "
+                f"{self.kind} transport needs an address (the correction "
+                "server's UDS path or host:port: python -m "
                 "repro_torch.launch.server)")
-        if self.latency_s is not None and self.kind in ("inproc", "wire"):
+        if self.latency_s is not None and self.kind in ("inproc", "wire",
+                                                        "shm"):
             raise ValueError(
                 f"transport {self.kind!r} has no latency model"
                 + (": RTT is measured on the real socket"
-                   if self.kind == "wire" else ""))
+                   if self.kind in ("wire", "shm") else ""))
 
     @classmethod
     def parse(cls, spec: Union[str, "TransportSpec"]) -> "TransportSpec":
         """``"stream"`` -> TransportSpec("stream");
         ``"wire:/tmp/corr.sock"`` / ``"wire:host:port"`` -> wire + address;
-        ``"shm:<address>"`` and ``"fleet:<router>"`` name the reference's
-        transports that are not ported (they raise).  A TransportSpec
-        passes through unchanged."""
+        ``"shm:/tmp/corr.sock"`` -> same-host shared-memory rings;
+        ``"fleet:/tmp/router.sock"`` -> wire through a fleet router.
+        A TransportSpec passes through unchanged."""
         if isinstance(spec, cls):
             return spec
         s = str(spec)

@@ -32,8 +32,12 @@ compute plus the round trip) should hide behind edge decode.  Two halves:
         the wire, and round trips and bytes are measured
         (``CommsMeter.record_wire_*``), not modelled.  The server may be
         the JAX package's: the frames are the same bytes.
-      - ``shm``         -- the reference's shared-memory rings, and the
-        ``fleet:`` router addresses; not ported (ROADMAP queue 1, item 6).
+      - ``shm``         -- ``wire`` with the data frames in a same-host
+        shared-memory ring pair (``serving/shm.py``, ``ShmWorker``); it
+        falls back to the wire when the server offers no arena.
+      - ``fleet:<router>`` addresses (``wire`` or ``shm``) route through a
+        ``serving/fleet.py`` supervisor and fail over to a sibling server
+        by replay when theirs dies or drains.
 
   * ``Dispatcher`` -- the edge side: tracks in-flight requests, polls or
     blocks for replies, and enforces the staleness window.
@@ -81,17 +85,8 @@ import torch
 from torch.profiler import record_function
 
 TRANSPORTS = ("inproc", "stream", "thread", "mock_remote", "wire", "shm")
-# the reference's transports that later slices port: kind -> ROADMAP item
-NOT_PORTED = {"shm": "6 (shm, fleet, launchers)",
-              "fleet": "6 (shm, fleet, launchers)"}
 # dispatches whose timing a StreamWorker keeps (the newest)
 TIMINGS_KEPT = 4096
-
-
-def not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {kind} transport is not ported yet: see ROADMAP.md queue 1, "
-        f"item {NOT_PORTED[kind]}")
 
 
 class Backlog(NamedTuple):
@@ -457,6 +452,21 @@ class MockRemoteWorker(ThreadWorker):
         super().__init__(catchup_fn, params, cache, latency_s=latency_s)
 
 
+class _Flight(NamedTuple):
+    """One unanswered request of a socket session: its frame (resent
+    verbatim after a failover), its trigger step and mask (the replies
+    confirm ``t + 1`` on the mask's rows) and the tokens it ships.
+    ``internal``: a replay request of a failover, whose reply the engine
+    never sees."""
+
+    req_id: int
+    internal: bool
+    buf: bytes
+    t: int
+    triggered: np.ndarray
+    n_tokens: int
+
+
 class SocketWorker(ServerWorker):
     """The ``wire`` transport: catch-up requests cross a real socket to a
     correction server in another process (``serving/server.py``, this
@@ -480,28 +490,53 @@ class SocketWorker(ServerWorker):
     ``coalesce=False`` opts the session out of the server's request
     coalescing (per-request replays).  Replies are matched against the
     head of the flight queue: a duplicate or stale reply is dropped, so
-    the Dispatcher's FIFO contract holds.  A server that dies or answers
-    with an ERROR frame fails the session with ``WireError`` (``PeerGone``
-    at the handshake); nothing falls back to a local replay.  ``fleet:``
-    router addresses and their failover are not ported (ROADMAP queue 1,
-    item 6).
+    the Dispatcher's FIFO contract holds.  A server that answers with an
+    ERROR frame fails the session with ``WireError``; nothing falls back
+    to a local replay.
+
+    Fleet mode (``address="fleet:<router>"``, ``serving/fleet.py``): the
+    worker HELLOs the router, follows its REDIRECT to the least-loaded
+    live server, and treats the connection as expendable.  The client is
+    the source of truth for its own token history (the backlog tokens it
+    shipped, kept in a host mirror), so a dead or draining server costs a
+    re-HELLO and a replay, never state:
+
+      * every request stays in the flight queue until its reply lands,
+        and ``_acked_pos`` holds the per-row position the replies have
+        confirmed;
+      * on EOF or reset (or a GOAWAY once the pipeline is empty) the
+        worker routes again, re-HELLOs, replays each row's confirmed
+        prefix ``history[i, :acked_pos[i]]`` from position 0 as internal
+        requests, then resends the unanswered requests verbatim: the
+        masked replay is per-position, so the new server's rows are the
+        dead server's and the resent requests meet the bases they were
+        built on;
+      * every byte of that recovery goes to ``CommsMeter``'s ``failover``
+        section, not to ``wire``.
+
+    On a direct address a dead server, a reset or a GOAWAY ends the
+    session with ``WireError`` (``PeerGone`` at the handshake), as the
+    reference's does without a router.
     """
 
     kind = "wire"
+    _FLEET_PREFIX = "fleet:"
     # a blocking wait that sees no reply for this long fails the session
-    # (a hung server must not hang the edge loop forever)
+    # over (or fails it, on a direct address): a hung server must not hang
+    # the edge loop forever
     _REPLY_TIMEOUT_S = 300.0
-
-    # the handshake's own timeout (connect, HELLO, HELLO_ACK)
+    # the time to find a usable server (connect, HELLO, HELLO_ACK; in
+    # fleet mode every route and retry together)
     _CONNECT_TIMEOUT_S = 60.0
+    # the transport-hop span of the traced RTT breakdown (the shm
+    # transport reports "shm.ring", the same stage of the table)
+    _socket_span = "wire.socket"
 
     def __init__(self, cache, *, address: str, batch: int, max_len: int,
                  coalesce: bool = True, comms=None, metrics=None,
                  tracer=None):
         from repro_torch.serving import wire
 
-        if address.startswith("fleet:"):
-            raise not_ported("fleet")
         self._wire = wire
         self.cache = cache               # stays cold (see the docstring)
         self.stream = None
@@ -509,49 +544,153 @@ class SocketWorker(ServerWorker):
         self._comms = comms
         self._metrics = metrics
         self._tracer = tracer
+        self._batch = int(batch)
+        # no token tail: the port has no audio family
+        self._hello = wire.Hello(batch, max_len, (), coalesce, "edge")
+        self._fleet = address.startswith(self._FLEET_PREFIX)
+        self._target = (address[len(self._FLEET_PREFIX):] if self._fleet
+                        else address)
         self._replies: deque = deque()
         # req_id -> (dispatch wall time, serialize duration): the client
         # half of the per-request RTT breakdown
         self._dispatch_wall: Dict[int, Tuple[float, float]] = {}
-        # the req_ids of unanswered requests, in dispatch order: the head
-        # is the only reply the FIFO contract accepts
-        self._flights: "deque[int]" = deque()
-        self._must_move = False      # GOAWAY received: leave when empty
+        # -- failover state (used in fleet mode) --------------------------------
+        self._flights: "deque[_Flight]" = deque()
+        self._acked_pos = np.zeros(self._batch, np.int32)
+        # the tokens every row has shipped, at their positions: what a
+        # failover replays
+        self._history = np.zeros((self._batch, int(max_len)), np.int32)
+        self._must_move = False      # GOAWAY received: move when empty
+        self._failing_over = False   # routes _tx/_rx to the failover bucket
+        self._internal_next = 1 << 62  # clear of the Dispatcher's req_ids
+        self.server_address: Optional[str] = None
         # while corked, outgoing frames gather into one buffer that leaves
         # in a single transmit at uncork (the engine corks around a step's
         # cohort fan-out)
         self._corked: Optional[List[bytes]] = None
-        # no token tail: the port has no audio family
-        hello = wire.Hello(batch, max_len, (), coalesce, "edge")
-        sock, ack, reader, tx, rx = wire.connect_hello(
-            address, hello, timeout=self._CONNECT_TIMEOUT_S)
+        self._sock, self._reader = None, wire.FrameReader()
+        self._establish(self._CONNECT_TIMEOUT_S)
+
+    # -- metering ------------------------------------------------------------
+    def _tx(self, n: int) -> None:
+        if self._comms is not None:
+            if self._failing_over:
+                self._comms.record_failover_tx(n)
+            else:
+                self._comms.record_wire_tx(n)
+
+    def _rx(self, n: int) -> None:
+        if self._comms is not None:
+            if self._failing_over:
+                self._comms.record_failover_rx(n)
+            else:
+                self._comms.record_wire_rx(n)
+
+    # -- connection management -------------------------------------------------
+    def _establish(self, timeout: float) -> None:
+        """Connect and HELLO (through the router in fleet mode, following
+        its REDIRECT).  Fleet mode retries the router on a refused or dead
+        target until ``timeout``; a direct address raises
+        ``HandshakeRefused`` or ``PeerGone`` at once."""
+        wire = self._wire
+        deadline = time.monotonic() + timeout
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise wire.PeerGone(
+                    f"no usable server via {self._target!r} "
+                    f"within {timeout:.1f}s")
+            # a short attempt in fleet mode: a dead redirect target must
+            # send us back to the router, not eat the whole deadline
+            per = min(2.0, remaining) if self._fleet else remaining
+            try:
+                sock, ack, reader, tx, rx = self._handshake(per)
+                break
+            except (wire.HandshakeRefused, wire.PeerGone, OSError):
+                if not self._fleet:
+                    raise
+                time.sleep(0.05)
         self._sock, self._reader = sock, reader
         self._tx(tx)
         self._rx(rx)
         self.session_id = ack.session_id
         self.slot_lo = ack.slot_lo
-        peer = sock.getpeername()
-        self.server_address = (peer if isinstance(peer, str)
-                               else f"{peer[0]}:{peer[1]}")
+        try:
+            peer = sock.getpeername()
+            self.server_address = (peer if isinstance(peer, str)
+                                   else f"{peer[0]}:{peer[1]}")
+        except OSError:
+            self.server_address = None
+        self._must_move = False
 
-    # -- metering ------------------------------------------------------------
-    def _tx(self, n: int) -> None:
+    def _handshake(self, timeout: float):
+        """One connect and HELLO: the transport's half of ``_establish``
+        (the shm transport negotiates its arena here)."""
+        return self._wire.connect_hello(self._target, self._hello,
+                                        timeout=timeout)
+
+    def _failover(self, why: str) -> None:
+        """Move to another server: route again, re-HELLO, replay each
+        row's confirmed prefix from position 0, resend the unanswered
+        requests verbatim.  A direct address raises ``WireError(why)``."""
+        wire = self._wire
+        if not self._fleet:
+            raise wire.WireError(why)
+        try:
+            self._sock.close()
+        except OSError:
+            pass
         if self._comms is not None:
-            self._comms.record_wire_tx(n)
+            self._comms.record_failover()
+        real = [f for f in self._flights if not f.internal]
+        self._failing_over = True
+        deadline = time.monotonic() + self._CONNECT_TIMEOUT_S
+        try:
+            while True:
+                self._flights = deque()
+                self._establish(max(0.1, deadline - time.monotonic()))
+                try:
+                    self._recover(real)
+                    return
+                except (wire.PeerGone, OSError):
+                    # the new server died during the recovery: route again
+                    try:
+                        self._sock.close()
+                    except OSError:
+                        pass
+                    if time.monotonic() > deadline:
+                        raise
+        finally:
+            self._failing_over = False
 
-    def _rx(self, n: int) -> None:
-        if self._comms is not None:
-            self._comms.record_wire_rx(n)
-
-    def _fail(self, why: str) -> None:
-        """A direct address has no sibling to move to: the session fails.
-        (The reference's fleet client fails over instead: it re-HELLOs
-        through its router and replays; ROADMAP queue 1, item 6.)"""
-        raise self._wire.WireError(why)
+    def _recover(self, real: List[_Flight]) -> None:
+        """On the fresh session: the replay of the confirmed prefixes, then
+        the unanswered requests, in FIFO order."""
+        wire = self._wire
+        acked = self._acked_pos
+        zeros_pos = np.zeros(self._batch, np.int32)
+        zeros_u = np.zeros(self._batch, np.float32)
+        for p in sorted({int(x) for x in acked if x > 0}):
+            trig = acked == p
+            rid = self._internal_next
+            self._internal_next += 1
+            buf = wire.encode_request(rid, p - 1, trig, zeros_pos, zeros_u,
+                                      self._history)
+            n_tok = int(trig.sum()) * p
+            self._flights.append(_Flight(rid, True, buf, p - 1, trig.copy(),
+                                         n_tok))
+            self._transmit(buf)
+            if self._comms is not None:
+                self._comms.record_failover_tokens(n_tok)
+        for f in real:
+            self._flights.append(f)
+            self._transmit(f.buf)
+            if self._comms is not None:
+                self._comms.record_failover_tokens(f.n_tokens, resent=True)
 
     def _move_now(self) -> None:
-        """A GOAWAY honoured once the pipeline is empty: leave politely;
-        with no router to find a sibling, the session ends there."""
+        """A GOAWAY honoured once the pipeline is empty: leave politely and
+        rebuild on a sibling (on a direct address the session ends)."""
         try:
             self._sock.settimeout(1.0)
             bye = self._wire.encode_bye()
@@ -559,15 +698,18 @@ class SocketWorker(ServerWorker):
             self._tx(len(bye))
         except OSError:
             pass
-        self._fail("server draining")
+        self._failover("server draining")
 
     # -- replies ---------------------------------------------------------------
+    def _record_rtt(self, rtt: float) -> None:
+        if self._comms is not None:
+            self._comms.record_wire_rtt(rtt)
+
     def _to_reply(self, msg) -> CatchupReply:
         now = time.monotonic()
         disp, ser = self._dispatch_wall.pop(msg.req_id, (now, 0.0))
         rtt = now - disp
-        if self._comms is not None:
-            self._comms.record_wire_rtt(rtt)
+        self._record_rtt(rtt)
         if self._metrics is not None or self._tracer is not None:
             self._breakdown(msg, now, disp, ser, rtt)
         return CatchupReply(msg.req_id, msg.t, np.asarray(msg.triggered),
@@ -603,21 +745,27 @@ class SocketWorker(ServerWorker):
             if queue_s is not None:
                 tr.add("server.queue", "server", now - compute - queue_s,
                        queue_s, track="server", req_id=msg.req_id)
-                tr.add("wire.socket", "wire", disp,
+                tr.add(self._socket_span, "wire", disp,
                        max(rtt - queue_s - compute, 0.0), track="wire",
                        req_id=msg.req_id)
 
     def _accept_reply(self, msg) -> bool:
         """Match a REPLY against the head of the flight queue; anything
-        else (a duplicate, a stale frame) is dropped.  Returns True when a
-        reply landed."""
-        if not self._flights or self._flights[0] != msg.req_id:
+        else (a duplicate, a stale frame racing a reconnect) is dropped.
+        Returns True when a reply for the engine landed."""
+        if not self._flights or self._flights[0].req_id != msg.req_id:
             return False
-        self._flights.popleft()
+        f = self._flights.popleft()
+        self._acked_pos = np.where(f.triggered, f.t + 1,
+                                   self._acked_pos).astype(np.int32)
+        if f.internal:
+            return False
         self._replies.append(self._to_reply(msg))
         return True
 
     def _on_payloads(self, payloads: List[bytes]) -> bool:
+        """Decode and act on frames from either plane (socket or ring).
+        Returns True when a reply for the engine landed."""
         wire = self._wire
         got = False
         for p in payloads:
@@ -632,8 +780,10 @@ class SocketWorker(ServerWorker):
 
     def _pump(self, block: bool) -> None:
         """Drain the socket into ``self._replies``: non-blocking takes what
-        the kernel has; blocking returns once a reply landed, and raises
-        ``WireError`` after ``_REPLY_TIMEOUT_S`` without one."""
+        the kernel has; blocking returns once a reply landed.  A dead
+        connection, or ``_REPLY_TIMEOUT_S`` without a reply, fails the
+        session over (fleet) or fails it (direct address); a GOAWAY moves
+        the session once the pipeline is empty."""
         got = False
         while True:
             if self._must_move and not self._flights:
@@ -646,15 +796,18 @@ class SocketWorker(ServerWorker):
                 return
             except socket.timeout:
                 if block and not got:
-                    self._fail("no reply within "
+                    self._failover(f"no reply within "
                                    f"{self._REPLY_TIMEOUT_S} s")
+                    continue
                 return
             except InterruptedError:
                 continue
             except OSError as e:
-                self._fail(f"connection lost: {e}")
+                self._failover(f"connection lost: {e}")
+                continue
             if not data:
-                self._fail("server closed connection")
+                self._failover("server closed connection")
+                continue
             self._rx(len(data))
             got |= self._on_payloads(self._reader.feed(data))
 
@@ -668,21 +821,30 @@ class SocketWorker(ServerWorker):
         lengths = np.where(trig, t + 1 - pos, 0)
         t_enc = time.monotonic()
         # the backlog's (R, B) tokens to the host once; each triggered
-        # stream's backlog, concatenated in stream order
+        # stream's backlog, concatenated in stream order, and into the
+        # history a failover replays
         toks = req.backlog.tokens.cpu().numpy()
         rows = np.flatnonzero(trig)
+        for i in rows:
+            self._history[i, pos[i]:t + 1] = toks[:lengths[i], i]
         tokens = (np.concatenate([toks[:lengths[i], i] for i in rows])
                   if len(rows) else np.zeros(0, np.int32))
         buf = self._wire.encode_request_arrays(self._wire.WireRequest(
             req.req_id, t, trig, pos, req.u_host, tokens))
         t_send = time.monotonic()
         self._dispatch_wall[req.req_id] = (t_send, t_send - t_enc)
+        n_tok = int(lengths.sum())
         if self._tracer is not None:
             self._tracer.add("wire.encode", "wire", t_enc, t_send - t_enc,
                              track="wire", req_id=req.req_id,
-                             bytes=len(buf), tokens=int(lengths.sum()))
-        self._flights.append(req.req_id)
-        self._send_frame(buf)
+                             bytes=len(buf), tokens=n_tok)
+        self._flights.append(_Flight(req.req_id, False, buf, t, trig.copy(),
+                                     n_tok))
+        try:
+            self._send_frame(buf)
+        except OSError as e:
+            # the flight is queued: a failover re-establishes and resends
+            self._failover(f"send failed: {e}")
 
     def poll(self) -> List[CatchupReply]:
         self._pump(block=False)
@@ -708,12 +870,10 @@ class SocketWorker(ServerWorker):
         self._transmit(buf)
 
     def _transmit(self, buf: bytes) -> None:
-        """The only place client bytes leave."""
+        """The only place client bytes leave (raises ``OSError``; callers
+        fail over)."""
         self._sock.settimeout(None)
-        try:
-            self._sock.sendall(buf)
-        except OSError as e:
-            self._fail(f"send failed: {e}")
+        self._sock.sendall(buf)
         self._tx(len(buf))
 
     def cork(self) -> None:
@@ -725,8 +885,14 @@ class SocketWorker(ServerWorker):
 
     def uncork(self) -> None:
         bufs, self._corked = self._corked, None
-        if bufs:
+        if not bufs:
+            return
+        try:
             self._transmit(b"".join(bufs))
+        except OSError as e:
+            # every corked request is in the flight queue: a failover
+            # re-establishes and resends them verbatim
+            self._failover(f"send failed: {e}")
 
     # -- slot-pool churn (MonitorSession.attach/detach over the wire) ----------
     def attach_slot(self, slot: int) -> None:
@@ -736,12 +902,22 @@ class SocketWorker(ServerWorker):
         pipeline first."""
         if self._must_move and not self._flights:
             self._move_now()
-        self._send_frame(self._wire.encode_attach(slot))
+        self._acked_pos[slot] = 0  # the new tenant's history starts cold
+        try:
+            self._send_frame(self._wire.encode_attach(slot))
+        except OSError as e:
+            # a lease after a failover is freshly zeroed: the reset the
+            # ATTACH asked for has happened on the new server
+            self._failover(f"send failed: {e}")
 
     def detach_slot(self, slot: int) -> None:
         """Tell the server the stream in row ``slot`` left (it zeroes the
         row; ATTACH zeroes it again on reuse)."""
-        self._send_frame(self._wire.encode_detach(slot))
+        self._acked_pos[slot] = 0
+        try:
+            self._send_frame(self._wire.encode_detach(slot))
+        except OSError as e:
+            self._failover(f"send failed: {e}")
 
     def close(self) -> None:
         if self._closed:
@@ -760,34 +936,208 @@ class SocketWorker(ServerWorker):
             pass
 
 
+class ShmWorker(SocketWorker):
+    """The ``shm`` transport: ``SocketWorker`` with the data plane in a
+    same-host shared-memory ring pair (``serving/shm.py``).
+
+    The handshake negotiates an arena over the Unix-domain control socket
+    (HELLO asks, HELLO_ACK offers and ships the fds via SCM_RIGHTS,
+    SHM_OPEN confirms); REQUEST frames then go out through the
+    client->server ring and REPLY frames come back through the
+    server->client ring, as the same wire-codec bytes, so FIFO replies,
+    the flight queue's check and the failover replay are the parent's.
+    Control frames (BYE, ATTACH, DETACH, GOAWAY, ERROR) stay on the
+    socket, which the worker drains beside the ring.
+
+    Fallback, always to plain wire with a logged reason
+    (``fallback_reason``): a TCP server address, a server that offers no
+    arena (wire-only or pre-v5), or a failed attach leave ``self._peer``
+    None, and the worker behaves as its parent.  A failover runs through
+    the router as the parent's: a sibling that offers no arena carries
+    the session on from there over the wire.
+
+    Metering: ring bytes and ring RTTs go to ``comms["shm"]``, socket
+    bytes (handshake, control) to ``comms["wire"]``.
+    """
+
+    kind = "shm"
+    _SEND_DEADLINE_S = 60.0   # ring-full backpressure cap (server dead?)
+
+    def __init__(self, cache, **kw):
+        self._peer = None
+        self.fallback_reason = ""
+        super().__init__(cache, **kw)
+
+    # -- handshake -------------------------------------------------------------
+    def _handshake(self, timeout: float):
+        import dataclasses
+
+        from repro_torch.serving import shm, wire
+
+        self._teardown_peer()
+        family, _ = wire.parse_address(self._target)
+        if family != socket.AF_UNIX:
+            # SCM_RIGHTS and a shared arena need a shared host
+            self.fallback_reason = ("remote (TCP) server address: shm "
+                                    "needs a shared host")
+            shm.log.info("shm fallback to pure wire for %s: %s",
+                         self._target, self.fallback_reason)
+            self._socket_span = "wire.socket"
+            return super()._handshake(timeout)
+        hello = dataclasses.replace(self._hello, shm=True)
+        sock, ack, reader, tx, rx, peer, reason = shm.connect_hello_shm(
+            self._target, hello, timeout=timeout)
+        self._peer = peer
+        self.fallback_reason = reason
+        # the traced RTT's transport-hop span names the plane that carries
+        # the data frames
+        self._socket_span = "shm.ring" if peer is not None else "wire.socket"
+        return sock, ack, reader, tx, rx
+
+    def _teardown_peer(self) -> None:
+        if self._peer is not None:
+            self._peer.close()
+            self._peer = None
+
+    # -- metering (ring plane -> comms["shm"]) ---------------------------------
+    def _tx_shm(self, n: int) -> None:
+        if self._comms is not None:
+            if self._failing_over:
+                self._comms.record_failover_tx(n)
+            else:
+                self._comms.record_shm_tx(n)
+
+    def _rx_shm(self, n: int) -> None:
+        if self._comms is not None:
+            if self._failing_over:
+                self._comms.record_failover_rx(n)
+            else:
+                self._comms.record_shm_rx(n)
+
+    def _record_rtt(self, rtt: float) -> None:
+        if self._comms is None:
+            return
+        if self._peer is not None:
+            self._comms.record_shm_rtt(rtt)
+        else:
+            self._comms.record_wire_rtt(rtt)
+
+    # -- data plane ------------------------------------------------------------
+    def _transmit(self, buf: bytes) -> None:
+        peer = self._peer
+        if peer is None:
+            return super()._transmit(buf)
+        mv = memoryview(buf)
+        off = 0
+        deadline = time.monotonic() + self._SEND_DEADLINE_S
+        while off < len(mv):
+            off += peer.send_all(mv[off:],
+                                 timeout=deadline - time.monotonic(),
+                                 wake_fds=(self._sock.fileno(),))
+            if off >= len(mv):
+                break
+            # the ring is full and the control socket has traffic (or the
+            # deadline passed): serve the control frames.  A dead server
+            # shows here as OSError, which callers fail over
+            self._drain_control()
+            if time.monotonic() > deadline:
+                raise OSError("shm ring backpressure timeout "
+                              f"({self._SEND_DEADLINE_S:.0f}s)")
+        self._tx_shm(len(buf))
+
+    def _drain_control(self) -> None:
+        """A non-blocking read of the control socket (``OSError`` on a
+        closed peer, so the caller's failover takes over)."""
+        self._sock.settimeout(0.0)
+        try:
+            data = self._sock.recv(1 << 16)
+        except (BlockingIOError, socket.timeout, InterruptedError):
+            return
+        if not data:
+            raise OSError("server closed control socket")
+        self._rx(len(data))
+        self._on_payloads(self._reader.feed(data))
+
+    def _pump(self, block: bool) -> None:
+        if self._peer is None:
+            return super()._pump(block)
+        import select
+        got = False
+        waited = time.monotonic()
+        while True:
+            if self._must_move and not self._flights:
+                self._move_now()
+                if self._peer is None:  # moved onto a wire sibling
+                    return super()._pump(block and not got)
+            peer = self._peer
+            # the ring first (the data plane), then the control socket
+            frames = peer.recv_frames()
+            if frames:
+                self._rx_shm(sum(len(p) + 4 for p in frames))
+                got |= self._on_payloads(frames)
+            try:
+                self._drain_control()
+            except OSError as e:
+                self._failover(f"connection lost: {e}")
+                if self._peer is None:
+                    return super()._pump(block and not got)
+                waited = time.monotonic()
+                continue
+            if got or not block:
+                return
+            if time.monotonic() - waited > self._REPLY_TIMEOUT_S:
+                self._failover(f"no reply within {self._REPLY_TIMEOUT_S} s")
+                if self._peer is None:
+                    return super()._pump(block)
+                waited = time.monotonic()
+                continue
+            # nothing yet: sleep on the doorbell and the socket.  Drain
+            # before the ring's re-check, so a wakeup racing the select is
+            # never lost
+            peer.db_own.drain()
+            if peer.reader.available():
+                continue
+            select.select([self._sock.fileno(), peer.fileno()], [], [], 0.25)
+
+    # -- lifecycle -------------------------------------------------------------
+    def _failover(self, why: str) -> None:
+        self._teardown_peer()
+        super()._failover(why)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        super().close()
+        self._teardown_peer()
+
+
 def make_worker(transport: str, catchup_fn, params, cache, *,
                 latency_s: Optional[float] = None,
                 wire_opts: Optional[Dict[str, Any]] = None) -> ServerWorker:
     """``latency_s=None`` keeps each transport's own default (0 for
     stream/thread, 20 ms for mock_remote).  ``wire_opts`` configures the
-    ``wire`` transport (at least ``address``; see ``SocketWorker``).
-    ``shm`` raises ``NotImplementedError`` naming its ROADMAP item."""
+    ``wire`` and ``shm`` transports (at least ``address``; see
+    ``SocketWorker``)."""
     if transport not in TRANSPORTS:
         raise ValueError(
             f"unknown transport {transport!r}: valid transports are "
             + ", ".join(repr(t) for t in TRANSPORTS))
-    if transport in NOT_PORTED:
-        raise not_ported(transport)
     if transport == "inproc":
         if latency_s:
             raise ValueError("inproc transport has no latency model")
         return ServerWorker(catchup_fn, params, cache)
-    if transport == "wire":
+    if transport in ("wire", "shm"):
         if latency_s:
             raise ValueError(
-                "wire transport has no simulated latency: RTT is measured "
-                "on the real socket (drop latency_s)")
+                f"{transport} transport has no simulated latency: RTT is "
+                "measured on the real socket (drop latency_s)")
         if not wire_opts or "address" not in wire_opts:
             raise ValueError(
-                "wire transport needs wire_opts={'address': ...} pointing "
-                "at a running correction server (python -m "
+                f"{transport} transport needs wire_opts={{'address': ...}} "
+                "pointing at a running correction server (python -m "
                 "repro_torch.launch.server)")
-        return SocketWorker(cache, **wire_opts)
+        cls = SocketWorker if transport == "wire" else ShmWorker
+        return cls(cache, **wire_opts)
     kw = {} if latency_s is None else {"latency_s": latency_s}
     cls = {"stream": StreamWorker, "thread": ThreadWorker,
            "mock_remote": MockRemoteWorker}[transport]

@@ -304,15 +304,16 @@ class CollaborativeEngine:
                      worker=None) -> None:
         """Open an async session: hand the server cache to a worker and set
         up the dispatch/merge layer.  ``transport``: inproc | stream |
-        thread | mock_remote | wire (``serving/async_rpc.py``);
+        thread | mock_remote | wire | shm (``serving/async_rpc.py``);
         ``max_staleness``: 0 is the strict synchronous boundary
         (bit-identical to ``_step``), k >= 1 lets a reply land 1..k steps
         after its trigger, blocking the edge loop only at k;
         ``latency_s``: a simulated round trip (stream, thread, mock_remote;
-        None keeps the transport's default).  ``address`` (wire only): the
-        correction server's UDS path or host:port (``python -m
-        repro_torch.launch.server``); the server then owns the session's
-        server cache and only ``server_pos`` comes home.
+        None keeps the transport's default).  ``address`` (wire and shm):
+        the correction server's UDS path or host:port (``python -m
+        repro_torch.launch.server``), or ``fleet:<router>``; the server
+        then owns the session's server cache and only ``server_pos`` comes
+        home.
         ``wire_coalesce=False`` opts the session out of the server's
         request coalescing."""
         from repro_torch.serving import async_rpc
@@ -321,7 +322,7 @@ class CollaborativeEngine:
         self._check_not_detached()
         if worker is None:
             wire_opts = None
-            if transport == "wire" and address is not None:
+            if transport in ("wire", "shm") and address is not None:
                 wire_opts = dict(address=address, batch=self.batch,
                                  max_len=self.max_len, coalesce=wire_coalesce,
                                  comms=self.comms, metrics=self.metrics,
@@ -430,7 +431,7 @@ class CollaborativeEngine:
         self._drain_async()
         self.server.cache = self._worker.cache
         self.server.pos = int(self.server_pos.max())
-        if self._worker.kind == "wire":
+        if self._worker.kind in ("wire", "shm"):
             # the worker's cache is the engine's cold one (the real cache
             # lived, and went, in the server process): serving on would be
             # silently wrong
@@ -450,7 +451,7 @@ class CollaborativeEngine:
         rows[slot] = True
         if self._dispatcher is not None:
             self._drain_async()
-            if self._worker.kind == "wire":
+            if self._worker.kind in ("wire", "shm"):
                 self._worker.attach_slot(slot)
             else:
                 self.server.zero_rows(rows, self._worker.cache)
@@ -474,7 +475,7 @@ class CollaborativeEngine:
         correction server."""
         if self._dispatcher is not None:
             self._drain_async()
-            if self._worker.kind == "wire":
+            if self._worker.kind in ("wire", "shm"):
                 self._worker.detach_slot(slot)
         self.active[slot] = False
 

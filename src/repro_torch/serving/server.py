@@ -34,12 +34,21 @@ The event loop is a single-threaded ``selectors`` reactor: drain every
 readable socket, run at most one coalesced replay, flush writes (one
 gathered ``sendmsg`` per session a tick).  The replay runs on the loop's
 thread, on ``device``.  Run it with ``python -m repro_torch.launch.server``
-or in a thread via ``serve_forever(stop=threading.Event())``.  The
-reference's shared-memory sessions (``shm=True``) and mesh-sharded
-super-batch (``mesh=``) are not ported and raise.
+or in a thread via ``serve_forever(stop=threading.Event())``.
+
+Same-host shared-memory sessions (``shm=True`` and a v5 client asking for
+one): the HELLO_ACK carries an arena offer and its fds via SCM_RIGHTS,
+data frames then move through the arena's ring pair (``serving/shm.py``)
+while every control frame stays on the socket.  The reactor registers
+each session's doorbell fd beside the sockets, so ring traffic wakes it
+like socket traffic; the reply ring never blocks the reactor: what does
+not fit stays in the session's residue buffer and flushes when the
+client's consume rings the doorbell.  The reference's mesh-sharded
+super-batch (``mesh=``) is not ported and raises.
 """
 from __future__ import annotations
 
+import logging
 import os
 import selectors
 import socket
@@ -54,6 +63,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.module import resolve_device
 from repro_torch.observability import MetricsRegistry, Tracer
+from repro_torch.serving import shm as shm_mod
 from repro_torch.serving import wire
 from repro_torch.serving.api import _later
 from repro_torch.serving.collaborative import CollaborativeEngine
@@ -63,6 +73,8 @@ from repro_torch.serving.tracker import Histogram, Tracker
 # sendmsg gather limit per flush: under any IOV_MAX (Linux has 1024); a
 # tick that queues more frames loops
 _IOV_MAX = 64
+
+log = logging.getLogger("repro_torch.serving.server")
 
 
 @dataclass
@@ -79,6 +91,10 @@ class Session:
     reader: wire.FrameReader = field(default_factory=wire.FrameReader)
     # per-frame output buffers, gathered into one sendmsg per flush
     out: List[bytes] = field(default_factory=list)
+    # -- shared-memory transport (serving/shm.py) ---------------------------
+    shm_arena: Optional["shm_mod.ServerArena"] = None  # offered at HELLO
+    shm_live: bool = False     # client confirmed with SHM_OPEN(ok=True)
+    shm_out: bytearray = field(default_factory=bytearray)  # reply-ring residue
 
     @property
     def hi(self) -> int:
@@ -96,15 +112,18 @@ class CorrectionServer:
                  tracker: Optional[Tracker] = None,
                  tracer: Optional[Tracer] = None,
                  stats_interval_s: float = 0.5,
-                 shm: bool = False, device=None):
-        if shm:
-            raise _later("the shm transport's server side",
-                         "6 (shm, fleet, launchers)")
+                 shm: bool = False,
+                 shm_ring_bytes: int = shm_mod.DEFAULT_RING_BYTES,
+                 device=None):
         if mesh is not None:
             raise _later("a mesh-sharded super-batch", "8 (mesh + analysis)")
         self.cfg, self.m = cfg, cfg.monitor
         self.slots, self.max_len = int(slots), int(max_len)
         self.coalesce = bool(coalesce)   # server-wide kill switch
+        # offer a shared-memory arena to v5 clients that ask for one
+        # (Unix-domain connections only; TCP peers stay on the wire)
+        self.shm = bool(shm)
+        self.shm_ring_bytes = int(shm_ring_bytes)
         self.device = resolve_device(device)
         # the replay core is the engine's masked catch-up: one engine at
         # batch=slots gives it and the super-batch server cache (its edge
@@ -133,8 +152,7 @@ class CorrectionServer:
                      "defrags", "refused_draining",
                      # sendmsg calls: one tick's frames gather into one
                      "tx_flushes",
-                     # the reference's ring-plane counters, zero here (no
-                     # shm sessions), kept so the heartbeat's keys match
+                     # ring-plane traffic, apart from the socket's
                      "shm_bytes_rx", "shm_bytes_tx", "shm_sessions"):
             self.metrics.counter(name)   # pre-create: zeros still report
         self.metrics.histogram("replay_s", 1e-5, 60.0)
@@ -325,7 +343,114 @@ class CorrectionServer:
         except KeyError:
             pass
 
+    # -- shared-memory plumbing (serving/shm.py) -------------------------------
+    def _send_reply(self, sess: Session, data: bytes) -> None:
+        """Data-plane send: the reply ring when the session is shm-live,
+        else the deferred, gathered socket path."""
+        if sess.shm_live:
+            sess.shm_out.extend(data)
+            self._shm_flush(sess)
+        else:
+            self._send(sess, data, flush=False)
+
+    def _shm_flush(self, sess: Session) -> None:
+        """Move reply residue into the ring, as much as fits.  Never
+        blocks: leftovers stay buffered, and this runs again when the
+        client's consume rings our doorbell."""
+        arena = sess.shm_arena
+        if arena is None or not sess.shm_out:
+            return
+        wrote = 0
+        while sess.shm_out:
+            n = arena.peer.writer.write(sess.shm_out)
+            if n == 0:
+                break
+            del sess.shm_out[:n]
+            wrote += n
+        if wrote:
+            self.metrics.inc("shm_bytes_tx", wrote)
+            arena.peer.db_peer.ring()
+
+    def _shm_wake(self, sess: Session) -> None:
+        """A session doorbell fired: the client produced requests or
+        consumed replies.  Drain, then check, so a ring racing the select
+        is never lost."""
+        arena = sess.shm_arena
+        if arena is None or sess.conn not in self._sessions:
+            return
+        arena.peer.db_own.drain()
+        self._shm_flush(sess)           # the client may have freed space
+        try:
+            frames = arena.peer.recv_frames()
+        except wire.WireError as e:
+            try:
+                self._send(sess, wire.encode_error(str(e)))
+            finally:
+                self._drop(sess)
+            return
+        for p in frames:
+            if sess.conn not in self._sessions:
+                return
+            self.metrics.inc("shm_bytes_rx", len(p) + 4)
+            try:
+                self._handle(sess, wire.decode(p))
+            except wire.WireError as e:
+                try:
+                    self._send(sess, wire.encode_error(str(e)))
+                finally:
+                    self._drop(sess)
+                return
+
+    def _offer_shm(self, sess: Session) -> bool:
+        """Answer a shm-requesting HELLO with an arena offer: the ack frame
+        and the arena and doorbell fds in one sendmsg (SCM_RIGHTS), after
+        which the arena file is unlinked.  False (nothing leaked) when
+        anything fails: the caller then sends the plain ack and the
+        session stays on the wire."""
+        if sess.out:
+            self._flush(sess)
+            if sess.out:
+                return False  # fds cannot join a backlogged stream
+        try:
+            arena = shm_mod.ServerArena.create(self.shm_ring_bytes)
+        except (OSError, shm_mod.ShmError) as e:
+            log.warning("arena creation failed (%s); session %d stays on "
+                        "wire", e, sess.sid)
+            return False
+        buf = wire.encode_hello_ack(wire.HelloAck(
+            sess.sid, sess.lo, self.max_len, shm_path=arena.path,
+            ring_bytes=arena.ring_bytes, db_kind=arena.db_kind))
+        try:
+            n = socket.send_fds(sess.conn, [buf], arena.fds())
+        except OSError as e:
+            arena.close()
+            log.warning("SCM_RIGHTS send failed (%s); session %d stays on "
+                        "wire", e, sess.sid)
+            return False
+        arena.sent()  # the fds are referenced in flight: unlink now
+        sess.shm_arena = arena
+        self.metrics.inc("bytes_tx", n)
+        self.metrics.inc("tx_flushes")
+        if n < len(buf):  # a partial ack frame: finish on the normal path
+            sess.out.append(buf[n:])
+            self._flush(sess)
+        return True
+
+    def _shm_teardown(self, sess: Session) -> None:
+        arena = sess.shm_arena
+        if arena is None:
+            return
+        try:
+            self._sel.unregister(arena.peer.fileno())
+        except (KeyError, ValueError):
+            pass
+        arena.close()
+        sess.shm_arena = None
+        sess.shm_live = False
+        sess.shm_out.clear()
+
     def _drop(self, sess: Session) -> None:
+        self._shm_teardown(sess)
         try:
             self._sel.unregister(sess.conn)
         except (KeyError, ValueError):
@@ -428,8 +553,10 @@ class CorrectionServer:
             sess.client = msg.client
             self._reset_rows(lo, lo + msg.batch)
             self.metrics.inc("sessions")
-            # a v5 client's shm request gets the plain ack: the session
-            # stays on the wire, as with the reference's wire-only server
+            if (self.shm and msg.shm
+                    and sess.conn.family == socket.AF_UNIX):
+                if self._offer_shm(sess):
+                    return
             self._send(sess, wire.encode_hello_ack(
                 wire.HelloAck(sess.sid, lo, self.max_len)))
         elif isinstance(msg, wire.WireRequest):
@@ -463,9 +590,22 @@ class CorrectionServer:
             self.metrics.inc("attaches" if isinstance(msg, wire.Attach)
                              else "detaches")
         elif isinstance(msg, wire.ShmOpen):
-            # no arena was offered: as the reference's wire-only server
-            self._send(sess, wire.encode_error("SHM_OPEN without offer"))
-            self._drop(sess)
+            # the client's verdict on the arena offer: ok moves data frames
+            # to the rings (the doorbell joins the reactor); a decline
+            # tears the arena down.  The session goes on either way
+            if sess.shm_arena is None:
+                self._send(sess, wire.encode_error("SHM_OPEN without offer"))
+                self._drop(sess)
+                return
+            if msg.ok:
+                sess.shm_live = True
+                self.metrics.inc("shm_sessions")
+                self._sel.register(sess.shm_arena.peer.fileno(),
+                                   selectors.EVENT_READ, ("shm", sess))
+            else:
+                log.info("session %d declined shm offer; staying on wire",
+                         sess.sid)
+                self._shm_teardown(sess)
         elif isinstance(msg, wire.Bye):
             self._flush(sess)
             self._drop(sess)
@@ -554,16 +694,16 @@ class CorrectionServer:
             if self.tracer is not None:
                 self.tracer.add("server.queue", "server", arrived, queue_s,
                                 track="server", req_id=req.req_id)
-            self._send(sess, wire.encode_reply(wire.WireReply(
+            self._send_reply(sess, wire.encode_reply(wire.WireReply(
                 req.req_id, req.t, req.triggered, v_np[sess.lo:sess.hi],
                 fhat_np[off:off + sess.batch],
                 server_time_s=dt / len(group), coalesced=len(group),
-                queue_s=queue_s)), flush=False)
+                queue_s=queue_s)))
             off += sess.batch
             touched[sess.sid] = sess
-        # one gathered flush per session for every reply of the tick
+        # one gathered flush per socket session for every reply of the tick
         for sess in touched.values():
-            if sess.conn in self._sessions:
+            if sess.conn in self._sessions and not sess.shm_live:
                 self._flush(sess)
 
     def _process_pending(self) -> None:
@@ -584,6 +724,11 @@ class CorrectionServer:
         for key, mask in self._sel.select(timeout):
             if key.data == "accept":
                 self._accept()
+                continue
+            if isinstance(key.data, tuple) and key.data[0] == "shm":
+                # a session doorbell: ring traffic (requests in, or reply
+                # space freed), no socket involved
+                self._shm_wake(key.data[1])
                 continue
             sess = self._sessions.get(key.fileobj)
             if sess is None:

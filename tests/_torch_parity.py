@@ -170,3 +170,67 @@ def ssd_emulate(xdt, la, Bm, Cm, chunk, pt, passes=3):
                              + tf32_matmul(np.swapaxes(Bd, -1, -2), X,
                                            passes))
     return y[:, :S], np.swapaxes(hT, -1, -2).copy()
+
+
+def serve_case(arch, batch, max_len, steps):
+    """A cross-package serving case: the reference's weights carried into
+    the port, a token stream, a mixed-trigger threshold (``gap_threshold``
+    of the port's scan u) set in both configs, and each package's sync
+    engine and run on them."""
+    from repro.serving.collaborative import CollaborativeEngine as JEngine
+    from repro_torch.serving import SessionConfig
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    jcfg, tcfg, params, model = collab_pair(arch)
+    toks = token_stream(tcfg, batch, steps)
+    probe = CollaborativeEngine(model, tcfg, batch, max_len,
+                                device="cpu").session(
+        SessionConfig(mode="scan")).run(toks)
+    thr, _ = gap_threshold(probe["u"])
+    jcfg, tcfg = with_threshold(jcfg, thr), with_threshold(tcfg, thr)
+    tsync = CollaborativeEngine(model, tcfg, batch, max_len, device="cpu")
+    jsync = JEngine(params, jcfg, batch=batch, max_len=max_len)
+    return dict(jcfg=jcfg, tcfg=tcfg, params=params, model=model, toks=toks,
+                thr=thr, tsync=tsync, rt=tsync.session().run(toks),
+                jsync=jsync, rj=jsync.session().run(toks))
+
+
+def check_across(r, mine, other, srv_pos, sync_pos, thr, plane="wire"):
+    """A transported run ``r`` against its own package's sync ``mine`` (u,
+    triggers exact) and the other package's ``other`` (u within the
+    end-to-end tolerance, triggers equal outside the tie band, whose size
+    it returns); server_pos and bytes equal to sync; fhat <= u; the
+    ``plane`` section of the comms report carried every reply."""
+    np.testing.assert_array_equal(r["u"], mine["u"])
+    np.testing.assert_array_equal(r["triggered"], mine["triggered"])
+    assert 0.0 < r["triggered"].mean() < 1.0, "need mixed triggers"
+    np.testing.assert_allclose(r["u"], other["u"], atol=TOL_E2E["float32"])
+    band = tie_band(other["u"], thr, TOL_E2E["float32"])
+    np.testing.assert_array_equal(r["triggered"][~band],
+                                  np.asarray(other["triggered"])[~band])
+    np.testing.assert_array_equal(srv_pos, sync_pos)
+    assert (np.asarray(r["fhat"]) <= np.asarray(r["u"])).all()
+    rep = r["comms"]
+    assert rep["bytes_sent"] == mine["comms"]["bytes_sent"]
+    np.testing.assert_array_equal(rep["per_stream"]["bytes_sent"],
+                                  mine["comms"]["per_stream"]["bytes_sent"])
+    p = rep[plane]
+    assert p["tx_bytes"] > 0 and p["rx_bytes"] > 0 and p["rtt_mean_s"] > 0
+    assert p["replies"] == rep["async"]["requests"] > 0
+    assert rep["async"]["inflight_now"] == 0
+    return int(band.sum())
+
+
+def no_stray_arenas(timeout=5.0):
+    """True once no shared-memory arena file is left on disk.  Another
+    test process of the suite may hold one for the instant between its
+    creation and its unlink at the handshake, so this waits a moment for
+    the directory to clear before it answers."""
+    import time
+
+    from repro_torch.serving import shm
+    deadline = time.monotonic() + timeout
+    while shm.stray_arenas():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True

@@ -230,17 +230,13 @@ def test_stream_transport_needs_a_cuda_engine():
 
 @pytest.mark.parametrize("transport", ["wire", "shm"])
 def test_socket_workers_are_not_ported(transport):
-    """``wire`` is ported: it refuses a missing address and a simulated
-    latency with the reference's ValueErrors (its sessions are tested in
-    tests/test_torch_server.py); ``shm`` still names its ROADMAP item."""
+    """``wire`` and ``shm`` are ported: each refuses a missing address and a
+    simulated latency with the reference's ValueErrors (their sessions are
+    tested in tests/test_torch_server.py and tests/test_torch_shm.py)."""
     cfg, model = _granite()
     eng = _engine(model, cfg, 2, 8)
     args = (eng._catchup_apply, eng.params, eng.server.cache)
-    if transport == "shm":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-            async_rpc.make_worker(transport, *args)
-        return
-    with pytest.raises(ValueError, match="address"):
+    with pytest.raises(ValueError, match=f"{transport} transport needs"):
         async_rpc.make_worker(transport, *args)
     with pytest.raises(ValueError, match="measured"):
         async_rpc.make_worker(transport, *args, latency_s=0.01,

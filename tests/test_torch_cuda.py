@@ -712,3 +712,102 @@ def test_wire_loopback_on_card(cuda, k, slots, tmp_path):
     assert r["comms"]["wire"]["replies"] == srv.stats["requests"] > 0
     counts = kernels.launch_counts()
     assert counts["decode_attention"] > 0 and counts["monitor_combine"] > 0
+
+
+# -- the shm transport and fleet failover on the card ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 2])
+def test_shm_loopback_on_card(cuda, k, tmp_path):
+    """A correction server on the card with ``shm=True`` (slots == B) in a
+    thread of this process, an shm session against it: every reply rides
+    the rings; u and triggers bitwise sync, server_pos and bytes equal,
+    fhat <= u, bitwise sync at k = 0; no arena file is left."""
+    import threading
+    from repro_torch.serving import TransportSpec, shm
+    from repro_torch.serving.server import CorrectionServer
+    cfg, model, toks, conf = _async_case(cuda)
+    r1, e1 = _serve(model, cfg, toks, conf)
+    srv = CorrectionServer(cfg, model, slots=toks.shape[0], max_len=32,
+                           uds=str(tmp_path / "s.sock"), shm=True,
+                           device=cuda)
+    stop = threading.Event()
+    th = threading.Thread(target=srv.serve_forever, kwargs=dict(stop=stop),
+                          daemon=True)
+    th.start()
+    try:
+        kernels.reset_launch_counts()
+        r, e = _serve(model, cfg, toks, conf, mode="async", max_staleness=k,
+                      transport=TransportSpec("shm", address=srv.address))
+    finally:
+        stop.set()
+        th.join(timeout=60)
+        srv.close()
+    for key in ("u", "triggered") + (("fhat",) if k == 0 else ()):
+        np.testing.assert_array_equal(r[key], r1[key], err_msg=key)
+    assert (r["fhat"] <= r["u"]).all()
+    np.testing.assert_array_equal(e.server_pos, e1.server_pos)
+    np.testing.assert_array_equal(r["comms"]["per_stream"]["bytes_sent"],
+                                  r1["comms"]["per_stream"]["bytes_sent"])
+    assert r["comms"]["shm"]["replies"] == srv.stats["requests"] > 0
+    assert srv.stats["shm_sessions"] == 1
+    counts = kernels.launch_counts()
+    assert counts["decode_attention"] > 0 and counts["monitor_combine"] > 0
+    assert shm.stray_arenas() == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["wire", "shm"])
+def test_fleet_failover_on_card(cuda, kind, tmp_path):
+    """Two thread servers on the card (slots == B, each replaying on a
+    stream of its own) behind the router; a strict-sync ``fleet:`` session
+    whose server is killed after step 8 finishes on the sibling bitwise
+    equal to the sync run: u, fhat, triggers, server_pos and bytes; one
+    failover."""
+    import threading
+    from repro_torch.serving import TransportSpec
+    from repro_torch.serving.fleet import FleetSupervisor
+    cfg, model, toks, conf = _async_case(cuda)
+    r1, e1 = _serve(model, cfg, toks, conf)
+    sup = FleetSupervisor(backend="thread", n_servers=2,
+                          slots=toks.shape[0], max_len=32, cfg=cfg,
+                          params=model, respawn=False, shm=kind == "shm",
+                          root=str(tmp_path), device=cuda,
+                          heartbeat_timeout_s=60.0)
+    stop = threading.Event()
+    loop = threading.Thread(target=sup.run_forever, args=(stop,),
+                            daemon=True)
+    try:
+        sup.start()
+        loop.start()
+        deadline = time.monotonic() + 60
+        while len(sup.live_servers()) < 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.02)
+        sess = MonitorSession.open(
+            model, cfg, batch=toks.shape[0], max_len=32,
+            config=SessionConfig(**conf, mode="async", max_staleness=0,
+                                 transport=TransportSpec(
+                                     kind, address="fleet:"
+                                     + sup.router_address)))
+        out = []
+        for t in range(toks.shape[1]):
+            out.append(sess.step(toks[:, t]))
+            if t == 8:
+                worker = sess.engine._worker
+                next(h for h in sup.servers.values()
+                     if h.address == worker.server_address).kill()
+        rep = sess.report()
+        sess.close()
+    finally:
+        stop.set()
+        loop.join(timeout=60)
+        sup.close()
+    r = {key: np.stack([o[key] for o in out], 1)
+         for key in ("u", "fhat", "triggered")}
+    for key in r:
+        np.testing.assert_array_equal(r[key], r1[key], err_msg=key)
+    np.testing.assert_array_equal(sess.engine.server_pos, e1.server_pos)
+    np.testing.assert_array_equal(rep["per_stream"]["bytes_sent"],
+                                  r1["comms"]["per_stream"]["bytes_sent"])
+    assert rep["failover"]["failovers"] == 1

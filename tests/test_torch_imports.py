@@ -25,7 +25,10 @@ import repro_torch.serving.tracker, repro_torch.observability
 import repro_torch.observability.trace, repro_torch.observability.metrics
 import repro_torch.observability.report
 import repro_torch.serving.wire, repro_torch.serving.server
-import repro_torch.launch.server
+import repro_torch.launch.server, repro_torch.serving.shm
+import repro_torch.serving.fleet, repro_torch.launch.fleet
+import repro_torch.launch.steps, repro_torch.launch.serve
+import repro_torch.launch.train
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)
@@ -122,11 +125,12 @@ def test_hybrid_constructors_default_to_the_card(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("entry", ["async_session", "cascade",
-                                   "wire_session"])
+                                   "wire_session", "shm_session",
+                                   "fleet_session"])
 def test_async_session_and_cascade_default_to_the_card(monkeypatch, entry):
     """An async session, each tier a CascadeSession is built over, and a
-    wire session read device=None as CUDA: without a card they raise, and
-    no worker falls back to the host."""
+    wire, shm or fleet session read device=None as CUDA: without a card
+    they raise, and no worker falls back to the host."""
     from repro_torch.configs.paper_synthetic import SERVING
     from repro_torch.core.decomposition import init_collab_lm
     from repro_torch.serving import (CascadeSession, MonitorSession,
@@ -144,6 +148,47 @@ def test_async_session_and_cascade_default_to_the_card(monkeypatch, entry):
             "wire_session": lambda: MonitorSession.open(
                 model, SERVING, batch=2, max_len=8,
                 config=SessionConfig(mode="async",
-                                     transport="wire:/nowhere.sock"))}[entry]
+                                     transport="wire:/nowhere.sock")),
+            "shm_session": lambda: MonitorSession.open(
+                model, SERVING, batch=2, max_len=8,
+                config=SessionConfig(mode="async",
+                                     transport="shm:/nowhere.sock")),
+            "fleet_session": lambda: MonitorSession.open(
+                model, SERVING, batch=2, max_len=8,
+                config=SessionConfig(mode="async",
+                                     transport="fleet:/nowhere.sock"))
+            }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+@pytest.mark.parametrize("entry", ["fleet_thread", "launch_serve",
+                                   "launch_train", "launch_fleet",
+                                   "serve_step"])
+def test_fleet_and_launchers_default_to_the_card(monkeypatch, entry):
+    """The fleet's servers and the serve, train and fleet launchers read no
+    ``--device`` (``device=None``) as CUDA: without a card they raise (the
+    fleet launcher when its server subprocess dies of it)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.paper_synthetic import SERVING
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.launch import fleet, serve, train
+    from repro_torch.serving.fleet import FleetSupervisor
+    model = init_collab_lm(SERVING, torch.Generator().manual_seed(0), "cpu")
+    cfg = registry.get_smoke("granite-8b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"fleet_thread": lambda: FleetSupervisor(
+                backend="thread", cfg=SERVING, params=model,
+                n_servers=1).start(),
+            "launch_serve": lambda: serve.main(["--arch", "granite-8b"]),
+            "launch_train": lambda: train.main(["--arch", "granite-8b",
+                                                "--smoke"]),
+            "launch_fleet": lambda: fleet.main([
+                "--arch", "granite-8b", "--n-servers", "1",
+                "--router-uds", os.path.join(
+                    __import__("tempfile").mkdtemp(), "r.sock")]),
+            "serve_step": lambda: serve.run_step(
+                __import__("argparse").Namespace(batch=2, tokens=2), cfg,
+                model, None)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

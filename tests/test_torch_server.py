@@ -44,7 +44,8 @@ from repro_torch.serving import (CascadeSession, SessionConfig,
 from repro_torch.serving.collaborative import CollaborativeEngine
 from repro_torch.serving.server import CorrectionServer
 
-from _torch_parity import collab_pair, token_stream, with_threshold
+from _torch_parity import (collab_pair, no_stray_arenas, token_stream,
+                           with_threshold)
 
 ML = 32
 
@@ -619,14 +620,43 @@ def test_drain_goaway_and_refusal():
 
 @pytest.mark.parametrize("what,item", [("shm", "item 6"), ("mesh", "item 8")])
 def test_unported_server_options_raise(what, item):
+    """``mesh`` is not ported and raises, naming its ROADMAP item, in the
+    server and its launcher.  ``shm`` (item 6) is ported: the launcher's
+    ``--transport shm`` server offers a shared-memory arena at HELLO, a
+    client maps it, and no arena file is left behind."""
+    from repro_torch.serving import shm
     cfg, model, _ = _setup()
-    kw = {"shm": True} if what == "shm" else {"mesh": "data:2"}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        CorrectionServer(cfg, model, uds=_uds_path(what), device="cpu", **kw)
-    flag = ["--transport", "shm"] if what == "shm" else ["--mesh", "data:2"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        launcher.main(["--arch", "paper-synthetic-serving", "--device",
-                       "cpu", "--uds", _uds_path("cli")] + flag)
+    if what == "mesh":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            CorrectionServer(cfg, model, uds=_uds_path(what), device="cpu",
+                             mesh="data:2")
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            launcher.main(["--arch", "paper-synthetic-serving", "--device",
+                           "cpu", "--uds", _uds_path("cli"), "--mesh",
+                           "data:2"])
+        return
+    uds = _uds_path("cli")
+    ready = uds + ".ready"
+    run = threading.Thread(target=launcher.main, args=([
+        "--arch", "paper-synthetic-serving", "--device", "cpu", "--uds", uds,
+        "--transport", "shm", "--ready-file", ready, "--idle-exit-s",
+        "0.2"],), daemon=True)
+    run.start()
+    deadline = time.monotonic() + 60
+    while not os.path.exists(ready):
+        assert run.is_alive() and time.monotonic() < deadline
+        time.sleep(0.02)
+    sock, ack, _, _, _, peer, reason = shm.connect_hello_shm(
+        uds, wire.Hello(2, 8, shm=True), timeout=10)
+    try:
+        assert peer is not None and reason == "", reason
+        assert ack.ring_bytes == shm.DEFAULT_RING_BYTES
+    finally:
+        peer.close()
+        sock.close()
+    run.join(timeout=60)
+    assert not run.is_alive(), "the launcher exits once idle"
+    assert no_stray_arenas()
 
 
 def test_server_and_launcher_default_to_the_card(monkeypatch):

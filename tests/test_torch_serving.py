@@ -228,24 +228,26 @@ def test_churn_survivors_exact_and_attach_bit_cold():
 
 def test_session_config_refuses_unported_paths():
     """What the port does not serve yet raises, naming its ROADMAP item:
-    the shm and fleet transports (item 6), mesh sharding and the recompile
-    guard (item 8).  The wire transport is ported: a spec without an
-    address, or with a simulated latency, is refused as the reference
-    refuses it, and an address parses."""
-    for kw, item in ((dict(mode="async", transport="shm:/tmp/x.sock"),
-                      "item 6"),
-                     (dict(transport="fleet:/tmp/router.sock"), "item 6"),
-                     (dict(mesh="data:8"), "item 8")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            SessionConfig(**kw)
-    with pytest.raises(ValueError, match="needs an address"):
-        SessionConfig(mode="async", transport="wire")
-    with pytest.raises(ValueError, match="measured on the real socket"):
-        TransportSpec("wire", address="/tmp/x.sock", latency_s=0.01)
-    spec = SessionConfig(mode="async",
-                         transport="wire:host:5555").transport
-    assert (spec.kind, spec.address, spec.coalesce) == ("wire", "host:5555",
-                                                        True)
+    mesh sharding and the recompile guard (item 8).  The wire, shm and
+    fleet transports are ported: a spec without an address, or with a
+    simulated latency, is refused as the reference refuses it, and the
+    addresses parse (``fleet:`` is shorthand for wire through a router)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+        SessionConfig(mesh="data:8")
+    for kind in ("wire", "shm"):
+        with pytest.raises(ValueError, match=f"{kind} transport needs an "
+                           "address"):
+            SessionConfig(mode="async", transport=kind)
+        with pytest.raises(ValueError, match="measured on the real socket"):
+            TransportSpec(kind, address="/tmp/x.sock", latency_s=0.01)
+    for text, want in (("wire:host:5555", ("wire", "host:5555")),
+                       ("shm:/tmp/x.sock", ("shm", "/tmp/x.sock")),
+                       ("fleet:/tmp/router.sock",
+                        ("wire", "fleet:/tmp/router.sock"))):
+        spec = SessionConfig(mode="async", transport=text).transport
+        assert (spec.kind, spec.address, spec.coalesce) == want + (True,)
+    spec = TransportSpec("shm", address="fleet:/tmp/router.sock")
+    assert (spec.kind, spec.address) == ("shm", "fleet:/tmp/router.sock")
     tcfg, _, model = _granite()
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
         MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu"

@@ -40,8 +40,7 @@ from repro_torch.serving import wire
 from repro_torch.serving.collaborative import CollaborativeEngine
 from repro_torch.serving.server import CorrectionServer
 
-from _torch_parity import (TOL_E2E, collab_pair, gap_threshold, tie_band,
-                           token_stream, with_threshold)
+from _torch_parity import check_across, serve_case
 
 PKGS = {"jax": jwire, "torch": wire}
 
@@ -276,15 +275,18 @@ def test_parse_address():
 
 # -- transport registry and handshakes -----------------------------------------
 
-def test_make_worker_wire_requires_address_and_rejects_latency():
+def test_make_worker_wire_requires_address_and_rejects_latency(monkeypatch):
+    """The reference's ValueErrors; a ``fleet:`` address whose router does
+    not answer keeps routing until its deadline, then raises PeerGone."""
     with pytest.raises(ValueError, match="address"):
         async_rpc.make_worker("wire", None, None, None)
     with pytest.raises(ValueError, match="measured"):
         async_rpc.make_worker("wire", None, None, None, latency_s=0.01,
                               wire_opts={"address": "/nowhere"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        async_rpc.SocketWorker(None, address="fleet:/tmp/r.sock", batch=1,
-                               max_len=8)
+    monkeypatch.setattr(async_rpc.SocketWorker, "_CONNECT_TIMEOUT_S", 0.5)
+    with pytest.raises(wire.PeerGone, match="no usable server"):
+        async_rpc.SocketWorker(None, address="fleet:" + _uds_path("router"),
+                               batch=1, max_len=8)
 
 
 def test_no_listener_is_peer_gone_after_retries():
@@ -388,18 +390,7 @@ def _case():
     """Weights (the reference's init, carried into the port), a token
     stream, a mixed-trigger threshold, and each package's sync run."""
     if not _CASE:
-        jcfg, tcfg, params, model = collab_pair("granite-8b")
-        toks = token_stream(tcfg, B, S)
-        probe = CollaborativeEngine(model, tcfg, B, ML, device="cpu").session(
-            SessionConfig(mode="scan")).run(toks)
-        thr, _ = gap_threshold(probe["u"])
-        jcfg, tcfg = with_threshold(jcfg, thr), with_threshold(tcfg, thr)
-        tsync = CollaborativeEngine(model, tcfg, B, ML, device="cpu")
-        jsync = JEngine(params, jcfg, batch=B, max_len=ML)
-        _CASE.update(jcfg=jcfg, tcfg=tcfg, params=params, model=model,
-                     toks=toks, thr=thr, tsync=tsync,
-                     rt=tsync.session().run(toks), jsync=jsync,
-                     rj=jsync.session().run(toks))
+        _CASE.update(serve_case("granite-8b", B, ML, S))
     return _CASE
 
 
@@ -437,25 +428,9 @@ def _check_across(r, mine, other, client, srv_pos, sync_pos, thr):
     """A wire run ``r`` of the ``client`` package against its own sync
     ``mine`` (u, triggers exact) and the other package's ``other`` (u
     within tolerance, triggers outside the tie band, fhat within 1e-4)."""
-    np.testing.assert_array_equal(r["u"], mine["u"])
-    np.testing.assert_array_equal(r["triggered"], mine["triggered"])
-    assert 0.0 < r["triggered"].mean() < 1.0, "need mixed triggers"
-    np.testing.assert_allclose(r["u"], other["u"], atol=TOL_E2E["float32"])
-    band = tie_band(other["u"], thr, TOL_E2E["float32"])
-    print(f"{client} client: {int(band.sum())} of {band.size} entries in "
-          "the tie band")
-    np.testing.assert_array_equal(r["triggered"][~band],
-                                  np.asarray(other["triggered"])[~band])
-    np.testing.assert_array_equal(srv_pos, sync_pos)
-    assert (np.asarray(r["fhat"]) <= np.asarray(r["u"])).all()
-    rep = r["comms"]
-    assert rep["bytes_sent"] == mine["comms"]["bytes_sent"]
-    np.testing.assert_array_equal(rep["per_stream"]["bytes_sent"],
-                                  mine["comms"]["per_stream"]["bytes_sent"])
-    w = rep["wire"]
-    assert w["tx_bytes"] > 0 and w["rx_bytes"] > 0 and w["rtt_mean_s"] > 0
-    assert w["replies"] == rep["async"]["requests"] > 0
-    assert rep["async"]["inflight_now"] == 0
+    band = check_across(r, mine, other, srv_pos, sync_pos, thr)
+    print(f"{client} client: {band} of {r['u'].size} entries in the tie "
+          "band")
 
 
 @pytest.mark.parametrize("k", [0, 4])
