@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths, serving and training on the dense
-granite-8b and on the zamba2-7b hybrid, on one NVIDIA GPU and check them.
+granite-8b and on the zamba2-7b hybrid, then on qwen2.5-32b,
+mixtral-8x22b and deepseek-v3, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -45,6 +46,11 @@ Phases, each printing its own lines:
               unless FN < 0.005 and L2 < 0.35); the Fig-4 financial pair
               (truncate-16 and FC(29,10,1)) with FN, L2, on-device size
               and comms reduction; µs per train step, peak memory.
+              (The kernels phase also holds decode_attention at G = 5
+              and 6, qwen2.5-32b's and mixtral's server shapes, at every
+              split, and flash_attention at Dqk 192 / Dv 128, deepseek-
+              v3's MLA prefill, in bf16 and f32 with its backward, to
+              their plain versions, and times them.)
 7. generate -- ServeEngine.generate on the server tower: granite-8b (36
               layers, B=8, a 64-token prompt, 64 new tokens, max_len 512)
               and zamba2-7b (81 layers, 16 + 16 tokens); raises unless
@@ -110,11 +116,23 @@ Phases, each printing its own lines:
               serve step (launch/steps.py::make_serve_step) at full width
               beside the gated sync session: ms/step, tokens/s, launches
               per step.
+11. families -- after fleet-shm: serve-qwen (qwen2.5-32b FULL, all 64
+              layers), serve-moe (mixtral-8x22b FULL widths, 8 of 56
+              layers) and serve-mla (deepseek-v3 FULL widths, 3 dense + 1
+              MoE layer of 61, no MTP head), each as phase 4 (sync and
+              scan, the same gates and launch counts); the MoE two also
+              run sync twice (bitwise) and hold their MoE dispatch bitwise
+              across runs and per-row routing equal to batched.  After
+              the train phase: train-moe (mixtral, 1 layer) and train-mla
+              (deepseek-v3, 2 dense MLA layers, flash at Dqk 192 / Dv
+              128), 3 AdamW steps each at B=2 x S=4096 without masters
+              (bf16 param_dtype), finite losses and launch counts.
 
 --profile adds torch.profiler breakdowns of one sync and one scan run, of
 one train step per model, of a train_paper step and of a generate step
 per model, and the CUDA stream ids of the serve kernels in a short async
-stream run per model (the phases run in the order 1-4, 8, 9, 10, 5-7).
+stream run per model (the phases run in the order 1-4, 8, 9, 10, 11's
+serve cells, 5, 11's train cells, 6, 7).
 Then
 one JSON line of the kernels, the
 card's name and power limit, and a last line {"ok": true, "device":
@@ -974,9 +992,11 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_serve(torch, dev, args, cfg):
-    """MonitorSession sync and scan over ``cfg`` at full width and depth;
-    returns the kernels' launch counts in the two runs."""
+def phase_serve(torch, dev, args, cfg, twice: bool = False):
+    """MonitorSession sync and scan over ``cfg`` at full width; returns the
+    kernels' launch counts in those runs.  ``twice``: a second sync run
+    must equal the first bitwise, and an MoE backbone's dispatch is held
+    bitwise across runs (``moe_bitwise``)."""
     from repro_torch import kernels
     from repro_torch.configs.paper_synthetic import SERVING_TRIGGER_RATE
     from repro_torch.core.decomposition import init_collab_lm
@@ -987,9 +1007,11 @@ def phase_serve(torch, dev, args, cfg):
     model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.server.parameters())
+    width = (cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla
+             else cfg.resolved_head_dim)
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
-          f" {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f" {cfg.n_heads}/{cfg.n_kv_heads} heads of {width}, d_ff "
+          f"{cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {n_params / 1e9:.2f} B server parameters; "
           f"random init on the card in {time.perf_counter() - t0:.1f} s")
     toks = np.random.default_rng(args.seed).integers(0, cfg.vocab_size, (B, S))
@@ -1020,6 +1042,13 @@ def phase_serve(torch, dev, args, cfg):
               f"{dt / S * 1e3:.2f} ms/step over {S} steps x {B} streams; "
               f"trigger rate {r['comms']['trigger_rate']:.3f}, reduction "
               f"{r['comms']['reduction_x']:.2f}x; launches {launched}")
+    if twice:
+        again = session("sync", **conf).run(toks)
+        for key in ("u", "fhat", "triggered"):
+            check(np.array_equal(again[key], runs["sync"][key]),
+                  f"{cfg.name} second sync run bitwise: {key}")
+        print(f"[serve] {cfg.name} a second sync run: u, fhat and triggers "
+              f"bitwise equal to the first")
     counts = kernels.launch_counts()
     print(f"[serve] {cfg.name} peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
@@ -1052,6 +1081,8 @@ def phase_serve(torch, dev, args, cfg):
           f"scan, max |fhat sync - scan| = {dfhat:.3e}, bytes_sent "
           f"{sync['comms']['bytes_sent']} <= baseline "
           f"{sync['comms']['bytes_baseline']}")
+    if cfg.is_moe:
+        moe_bitwise(torch, dev, model, cfg, args.seed)
     if args.profile:
         profile(torch, session, conf, toks[:, :PROFILE_STEPS], cfg.name)
     del model, session
@@ -1064,7 +1095,8 @@ def train_launches_per_step(cfg) -> dict:
     per attention layer and one ssd_scan per Mamba2 layer in the forward,
     again in the recompute of each checkpointed server segment under remat
     (a hybrid super-block runs its k Mamba2 layers and the shared block);
-    the edge tower (no remat) adds one flash per layer."""
+    the edge tower (no remat) adds one flash per layer, an MTP head one
+    (its block runs outside the layer loop, without remat)."""
     from repro_torch.core.decomposition import edge_arch
     from repro_torch.models import hybrid
     again = 2 if cfg.remat else 1
@@ -1073,17 +1105,21 @@ def train_launches_per_step(cfg) -> dict:
         n_super, k, tail = hybrid._layout(cfg)
         return {"flash_attention": n_super * again + edge,
                 "ssd_scan": (n_super * k + tail) * again}
-    return {"flash_attention": cfg.n_layers * again + edge, "ssd_scan": 0}
+    mtp = 1 if cfg.is_moe and cfg.mtp_depth else 0
+    return {"flash_attention": cfg.n_layers * again + edge + mtp,
+            "ssd_scan": 0}
 
 
-def phase_train(torch, dev, args, cfg, full_layers: int, lr_witness: bool):
+def phase_train(torch, dev, args, cfg, full_layers: int, lr_witness: bool,
+                steps: int = TRAIN_STEPS, grad_witness: bool = True):
     """train_collab_lm at full width, ``cfg.n_layers`` of ``full_layers``
-    server layers deep; returns the kernels' launch counts in that run."""
+    server layers deep, ``steps`` AdamW steps; returns the kernels' launch
+    counts in that run."""
     from repro_torch import kernels
     from repro_torch.core.decomposition import collab_forward
     from repro_torch.data.tokens import lm_batches
     from repro_torch.training.loop import to_device, train_collab_lm
-    B, S, n = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, steps
     seen = []
 
     def batches():
@@ -1111,11 +1147,15 @@ def phase_train(torch, dev, args, cfg, full_layers: int, lr_witness: bool):
           f"ms/step; step 1 {hist[0]['wall_s'] * 1e3:.1f} ms; launches "
           f"{counts}; peak device memory {peak / 2**30:.2f} GiB")
     for h in hist:
+        extra = "".join(f" {key} {h[key]:.6f}" for key in ("aux", "mtp")
+                        if key in h)
         print(f"[train] step {h['step'] + 1}: total {h['total']:.6f} lm "
               f"{h['lm']:.6f} monitor {h['monitor']:.6f} safety "
-              f"{h['safety']:.6f} grad_norm {h['grad_norm']:.6f}")
-        for key in ("total", "lm", "monitor", "safety", "grad_norm"):
-            check(math.isfinite(h[key]), f"train step {h['step']} {key}")
+              f"{h['safety']:.6f}{extra} grad_norm {h['grad_norm']:.6f}")
+        for key in ("total", "lm", "monitor", "safety", "grad_norm", "aux",
+                    "mtp"):
+            check(math.isfinite(h.get(key, 0.0)),
+                  f"train step {h['step']} {key}")
     for name, per_step in train_launches_per_step(cfg).items():
         print(f"[train] {cfg.name} {name}: {counts[name]} launches, "
               f"{per_step} per step as the code makes them")
@@ -1134,7 +1174,8 @@ def phase_train(torch, dev, args, cfg, full_layers: int, lr_witness: bool):
     torch.cuda.empty_cache()
     if lr_witness:
         lr_witness_run(torch, dev, args, cfg, hist)
-    gradient_witness(torch, dev, cfg, to_device(seen[0], dev), args.seed)
+    if grad_witness:
+        gradient_witness(torch, dev, cfg, to_device(seen[0], dev), args.seed)
     if args.profile:
         profile_train(torch, dev, cfg, args.seed)
     return counts
@@ -2988,6 +3029,222 @@ def launcher_smoke(dev: str) -> None:
     print(f"{label}: all exit 0 in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 11
+# the families of the third port slice: qwen2.5-32b uncut, all 64 layers
+# (its 65.5 GB of bf16 weights fit the card), mixtral-8x22b at 8 of 56
+# layers (2.50 B parameters a layer: 41 GB), deepseek-v3 at its 3 dense layers
+# and 1 MoE layer (4 of 61: 15.1 B, 30 GB; decode runs no MTP head, so the
+# serving model has none); trained: mixtral at 1 layer (2.91 B x 12 bytes)
+# and deepseek-v3 at 2 dense layers without routed experts or MTP head
+# (3.02 B: one routed layer alone is 11.5 B, 138 GB to train)
+MOE_SERVE_LAYERS = 8
+MLA_SERVE_LAYERS = 4
+FAMILY_TRAIN_STEPS = 3
+
+
+def phase_wide_kernels(torch, dev, seed: int, records) -> None:
+    """decode_attention at G = 5 and 6 (qwen2.5-32b's and mixtral's server
+    shapes, every split) and flash_attention at Dqk 192 over Dv 128 (bf16
+    and f32, and its backward), each against its plain version; their
+    times beside the bound and SDPA.  Folds the worst errors into
+    ``records``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (SPLITS,
+                                                      decode_attention_cuda,
+                                                      decode_attention_plain,
+                                                      decode_attention_split,
+                                                      decode_plan)
+    from repro_torch.kernels.flash_attention import (flash_attention_backward,
+                                                     flash_attention_cuda,
+                                                     flash_attention_plain,
+                                                     flash_plan)
+    gen = torch.Generator(dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    B, Hkv, D, C = BATCH, 8, 128, MAX_LEN
+    worst = 0.0
+    for G, arch in ((5, "qwen2.5-32b"), (6, "mixtral-8x22b")):
+        Hq = Hkv * G
+        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(bf16)
+        n_copies = max(2, math.ceil(200e6 / (2 * B * C * Hkv * D * 2)))
+        ks, vs = ([torch.randn((B, C, Hkv, D), generator=gen,
+                               device=dev).to(bf16) for _ in range(n_copies)]
+                  for _ in range(2))
+        for case, pos in (("pos=0", 0), (f"full pos={C - 1}", C - 1),
+                          ("ragged", torch.randint(0, 2 * C, (B,),
+                                                   generator=gen,
+                                                   device=dev)),
+                          ("pos vector 0..6",
+                           torch.arange(B, device=dev) % 7)):
+            ref = decode_attention_plain(q, ks[0], vs[0], pos)
+            errs = []
+            for n in SPLITS:
+                out = decode_attention_split(q, ks[0], vs[0], pos, n)
+                torch.cuda.synchronize()
+                errs.append(max_err(out, ref))
+                check(within(out, ref, TOL["bfloat16"]),
+                      f"decode_attention G={G} splits={n} {case}")
+            worst = max(worst, *errs)
+            print(f"[kernels] decode_attention G={G} ({arch} server) B={B} "
+                  f"Hq={Hq} Hkv={Hkv} D={D} C={C} {case}: max_abs_err by "
+                  f"split {dict(zip(SPLITS, (f'{e:.3e}' for e in errs)))} "
+                  f"(bf16 tol {TOL['bfloat16']})")
+        pos = torch.full((B,), C - 1, dtype=torch.int32, device=dev)
+        ms, host = time_ms(torch, lambda i: decode_attention_cuda(
+            q, ks[i % n_copies], vs[i % n_copies], pos), 100)
+        plain, _ = time_ms(torch, lambda i: decode_attention_plain(
+            q, ks[i % n_copies], vs[i % n_copies], pos), 20)
+        sweep = {n: time_ms(torch, lambda i: decode_attention_split(
+            q, ks[i % n_copies], vs[i % n_copies], pos, n), 100)[0] * 1e3
+            for n in SPLITS}
+        lib = None
+        if has_gqa_sdpa(torch):
+            qs = q[:, :, None, :]
+            lib, _ = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qs, ks[i % n_copies].transpose(1, 2),
+                vs[i % n_copies].transpose(1, 2), enable_gqa=True), 100)
+        n_bytes = 2 * q.numel() * 2 + 2 * B * C * Hkv * D * 2 + B * 4
+        bms, by = bound_ms(n_bytes, 4.0 * B * Hq * C * D, BF16_FLOPS)
+        print(f"[kernels] decode_attention time G={G} ({arch} server, full "
+              f"cache, cold): kernel {ms * 1e3:.2f} us (host-bound "
+              f"{host * 1e3:.2f} us), plain {plain * 1e3:.2f} us, library "
+              f"{'n/a' if lib is None else f'{lib * 1e3:.2f} us'} (SDPA "
+              f"enable_gqa), bound {bms * 1e3:.2f} us ({by}, "
+              f"{n_bytes / 1e6:.2f} MB); by split count (planned "
+              f"{decode_plan(B, Hkv, C)['splits']}): "
+              + ", ".join(f"{n}: {us:.2f} us" for n, us in sweep.items()))
+        del ks, vs
+    rec = records["decode_attention"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], worst)
+
+    # flash at MLA's widths: q and k 192 wide, v 128
+    def qkv(B, S, H, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((B, S, H, 192), (B, S, H, 192),
+                              (B, S, H, 128))]
+
+    worst = 0.0
+    for label, (B_, S, H, window), dtype in (
+            ("bf16 ragged", (2, 333, 4, 0), bf16),
+            ("bf16 window 50", (1, 300, 2, 50), bf16),
+            ("f32 ragged", (2, 333, 4, 0), torch.float32),
+            ("f32 window 50", (1, 300, 2, 50), torch.float32),
+            ("bf16 deepseek-v3 train shape", (2, TRAIN_SEQ, 128, 0), bf16)):
+        q, k, v = qkv(B_, S, H, dtype)
+        o, lse = flash_attention_cuda(q, k, v, window=window)
+        po, plse = flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        tol = TOL["bfloat16" if dtype == bf16 else "float32"]
+        err, lerr = max_err(o, po), max_err(lse, plse)
+        worst = max(worst, err)
+        check(o.shape == (B_, S, H, 128), f"flash 192/128 {label} shape")
+        check(within(o, po, tol), f"flash 192/128 {label}")
+        check(within(lse, plse, TOL["float32"]), f"flash 192/128 lse {label}")
+        print(f"[kernels] flash_attention Dqk=192 Dv=128 {label} B={B_} "
+              f"S={S} H={H} window={window}: max_abs_err={err:.3e} (tol "
+              f"{tol}), lse max_abs_err={lerr:.3e}")
+        del q, k, v, o, lse, po, plse
+    q, k, v = qkv(2, 300, 4, torch.float32)
+    do = torch.randn((2, 300, 4, 128), generator=gen, device=dev)
+    grads = []
+    for fn in (lambda a, b, c: ops.flash_attention(a, b, c),
+               lambda a, b, c: flash_attention_plain(a, b, c)[0]):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves) * do).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for name, a, b in zip("qkv", *grads):
+        rel = max_err(a, b) / float(b.abs().max())
+        print(f"[kernels] flash_attention Dqk=192 Dv=128 backward d{name}: "
+              f"max_abs_err / max|grad| = {rel:.3e} (tol 1e-4)")
+        check(rel <= 1e-4, f"flash 192/128 backward d{name}")
+    del grads
+    B_, S, H = 2, TRAIN_SEQ, 128
+    q, k, v = qkv(B_, S, H, bf16)
+    ms, _ = time_ms(torch, lambda i: flash_attention_cuda(q, k, v), 5)
+    plain, _ = time_ms(torch, lambda i: flash_attention_plain(q, k, v), 2)
+    o, lse = flash_attention_cuda(q, k, v)
+    do = torch.randn(o.shape, generator=gen, device=dev).to(bf16)
+    bwd, _ = time_ms(torch, lambda i: flash_attention_backward(
+        q, k, v, o, lse, do), 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        lib, _ = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 5)
+        lib_note = f"{lib * 1e3:.1f} us (SDPA is_causal, Ev != E)"
+    except RuntimeError as err:
+        lib, lib_note = None, f"none (SDPA refused Ev != E: {err})"[:160]
+    pairs = attention_pairs(S, S, 0)
+    n_ops = 2.0 * B_ * H * pairs * (192 + 128)
+    n_bytes = 2 * (2 * B_ * S * H * 192 + 2 * B_ * S * H * 128) \
+        + 4 * B_ * H * S
+    bms, by = bound_ms(n_bytes, n_ops, BF16_FLOPS)
+    plan = flash_plan(B_, S, H, 192, bf16, 128)
+    print(f"[kernels] flash_attention time Dqk=192 Dv=128 (deepseek-v3 "
+          f"train shape) B={B_} S={S} H={H} causal: kernel {ms * 1e3:.1f} "
+          f"us ({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain * 1e3:.1f} us, "
+          f"library {lib_note}, bound {bms * 1e3:.2f} us ({by}: "
+          f"{n_ops:.3e} flop, {n_bytes / 1e6:.2f} MB); backward (tensor "
+          f"ops) {bwd * 1e3:.1f} us; K tiles of {plan['block_k']} x "
+          f"{plan['box_cols']}, V of {plan['block_k']} x "
+          f"{plan['v_box_cols']}, {plan['smem_bytes']} bytes of shared "
+          f"memory")
+    rec = records["flash_attention"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], worst)
+    del q, k, v, o, lse, do, qt, kt, vt
+
+
+def moe_bitwise(torch, dev, model, cfg, seed: int) -> None:
+    """The first MoE block's dispatch on a random bf16 input at the serve
+    batch: two runs agree bitwise, batched and routed per row, and per-row
+    routing equals batched routing (no token can be dropped at B <= 8)."""
+    from repro_torch.nn.moe import moe_apply
+    moe = model.server.blocks_moe[0].moe
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((BATCH, 1, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor)
+    outs = {g: [moe_apply(moe, x, groups=g, **kw)[0] for _ in range(2)]
+            for g in (1, BATCH)}
+    torch.cuda.synchronize()
+    for g, (a, b) in outs.items():
+        check(torch.equal(a, b), f"{cfg.name} MoE combine bitwise, groups={g}")
+    same = torch.equal(outs[1][0], outs[BATCH][0])
+    print(f"[serve] {cfg.name} MoE dispatch at B={BATCH}: two runs bitwise "
+          f"equal batched and per row; per-row routing "
+          f"{'bitwise equal to' if same else 'differs from'} batched "
+          f"(max |diff| {max_err(outs[1][0], outs[BATCH][0]):.3e})")
+
+
+def phase_families(torch, dev, args) -> dict:
+    """serve-qwen, serve-moe and serve-mla: MonitorSession sync and scan
+    at full width (phase_serve's gates), the MoE phases with a second sync
+    run held bitwise to the first; returns the serve kernels' launches."""
+    from repro_torch.configs import deepseek_v3_671b, mixtral_8x22b, qwen25_32b
+    counts = dict.fromkeys(SERVE_KERNELS, 0)
+    for label, cfg in (
+            ("serve-qwen", qwen25_32b.FULL),
+            ("serve-moe", mixtral_8x22b.FULL.replace(
+                n_layers=MOE_SERVE_LAYERS)),
+            ("serve-mla", deepseek_v3_671b.FULL.replace(
+                n_layers=MLA_SERVE_LAYERS, mtp_depth=0))):
+        print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads"
+              + (f", {cfg.n_experts} experts top-{cfg.top_k} + "
+                 f"{cfg.n_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}, "
+                 f"{cfg.first_dense_layers} dense layers"
+                 if cfg.is_moe else "")
+              + (f", MLA kv_lora {cfg.kv_lora_rank} + rope "
+                 f"{cfg.qk_rope_dim}" if cfg.use_mla else ""))
+        run = phase_serve(torch, dev, args, cfg, twice=cfg.is_moe)
+        for name in SERVE_KERNELS:
+            counts[name] += run[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3045,6 +3302,7 @@ def main(argv=None) -> int:
     records["flash_attention"] = phase_flash(torch, dev, args.seed,
                                              flash_shapes)
     records["ssd_scan"] = phase_ssd(torch, dev, args.seed, ssd_shape)
+    phase_wide_kernels(torch, dev, args.seed, records)
     gc.collect()
     torch.cuda.empty_cache()
     took("kernels")
@@ -3080,6 +3338,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     took("fleet-shm")
+    run = phase_families(torch, dev, args)
+    for name in SERVE_KERNELS:
+        counts[name] += run[name]
+    took("serve-qwen, serve-moe, serve-mla")
     for cfg, n_full, lr_witness in (
             (full.replace(n_layers=TRAIN_LAYERS), full.n_layers, True),
             (zfull.replace(n_layers=HYBRID_TRAIN_LAYERS), zfull.n_layers,
@@ -3090,6 +3352,21 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     took("train")
+    from repro_torch.configs import deepseek_v3_671b, mixtral_8x22b
+    for label, cfg, n_full in (
+            ("train-moe", mixtral_8x22b.FULL.replace(n_layers=1),
+             mixtral_8x22b.FULL.n_layers),
+            ("train-mla", deepseek_v3_671b.FULL.replace(
+                n_layers=2, first_dense_layers=2, mtp_depth=0),
+             deepseek_v3_671b.FULL.n_layers)):
+        print(f"[{label}] {cfg.name} at full width, {cfg.n_layers} layer(s)")
+        run = phase_train(torch, dev, args, cfg, n_full, False,
+                          steps=FAMILY_TRAIN_STEPS, grad_witness=False)
+        for name in TRAIN_KERNELS:
+            counts[name] += run[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+    took("train-moe, train-mla")
     phase_paper(torch, dev, args.seed, args.profile)
     took("paper")
     for cfg in (full, zfull):

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_full``/``get_smoke`` by name,
 as in the JAX package (``configs/registry.py``).
 
-Only the configs the port runs are here: the dense granite-8b, the
+Only the configs the port runs are here: the dense granite-8b and Qwen
+archs, the MoE family (mixtral-8x22b, deepseek-v3 with MLA and MTP), the
 zamba2 hybrid and the paper's own two experiments, whose FULL/SMOKE are
 ``PaperMLPConfig``s (the LM-scale serving workload is
 ``paper_synthetic.SERVING``).  Every other arch of the JAX registry
@@ -16,15 +17,18 @@ from typing import List
 _ARCHS = {
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "granite-8b": "repro_torch.configs.granite_8b",
+    "qwen1.5-110b": "repro_torch.configs.qwen15_110b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "qwen2.5-32b": "repro_torch.configs.qwen25_32b",
+    "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     # the paper's own experiments (synthetic cosine / financial monitoring)
     "paper-synthetic": "repro_torch.configs.paper_synthetic",
     "paper-financial": "repro_torch.configs.paper_financial",
 }
 
 # archs of the JAX registry that later slices port (ROADMAP queue 1, item 7)
-_LATER = ("qwen1.5-110b", "deepseek-v3-671b", "qwen2.5-32b",
-          "musicgen-large", "qwen1.5-32b", "mixtral-8x22b",
-          "llama-3.2-vision-11b", "xlstm-350m")
+_LATER = ("musicgen-large", "llama-3.2-vision-11b", "xlstm-350m")
 
 
 def names(include_paper: bool = False) -> List[str]:

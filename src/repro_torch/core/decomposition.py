@@ -174,9 +174,9 @@ def paper_forward(p: PaperDecomposition, x: torch.Tensor, cfg, *,
 def edge_arch(cfg: ArchConfig) -> ArchConfig:
     """The edge tower's config, derived from ``cfg.monitor``: a small dense
     decoder with a 1k-token ring cache (the edge memory budget), for a
-    dense or a hybrid server, as in the reference."""
+    dense, MoE or hybrid server, as in the reference."""
     m = cfg.monitor
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"edge tower for family {cfg.family!r} is not ported yet: see "
             "ROADMAP.md queue 1, item 7 (other families)")
@@ -261,8 +261,9 @@ def corrector_score(model: CollabLM, cfg: ArchConfig,
 def collab_forward(model: CollabLM, cfg: ArchConfig,
                    batch) -> Dict[str, torch.Tensor]:
     """Training-time forward of the whole collaborative system (ref :196):
-    the server's logits and corrector v, the edge's monitor u, and
-    ``fhat = u - s * sigma(v)`` with the monitor config's ``s``."""
+    the server's logits (and MTP logits, where it has the head) and
+    corrector v, the edge's monitor u, and ``fhat = u - s * sigma(v)``
+    with the monitor config's ``s``."""
     m = cfg.monitor
     s = m.s
     server_out = model_api.forward(model.server, cfg, batch)
@@ -272,4 +273,5 @@ def collab_forward(model: CollabLM, cfg: ArchConfig,
     return {"u": u, "v": v, "fhat": u - corr, "corr": corr,
             "logits": server_out["logits"],
             "aux_loss": server_out["aux_loss"],
+            "mtp_logits": server_out.get("mtp_logits"),
             "t": softplus(model.u_head.raw_t)}

@@ -3,8 +3,8 @@
 Paper scale: MSE on fhat (the paper's §4 training), with an optional
 safety hinge on f - u for the regime where t is learned rather than sized
 by Prop 2.  LM scale: the server tower's next-token cross entropy, the
-paper's approximation term MSE(fhat, f) and the learned safety hinge on
-u < f."""
+paper's approximation term MSE(fhat, f), the learned safety hinge on
+u < f, the MoE load-balance loss and DeepSeek's MTP term."""
 from __future__ import annotations
 
 from typing import Dict
@@ -31,28 +31,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -torch.mean(ll)
 
 
-# weight of the MoE load-balance loss, the reference's default (0 for the
-# dense backbones the port trains)
-AUX_WEIGHT = 0.01
-
-
 def collab_lm_loss(out: Dict[str, torch.Tensor], batch, *,
-                   monitor_weight: float = 1.0,
-                   safety_weight: float = 10.0) -> Dict[str, torch.Tensor]:
-    """The reference's joint objective (ref :38) at its default aux weight
-    and hinge margin 0, dense part: the MTP term comes with the MoE family
-    (ROADMAP queue 1, item 7).
+                   monitor_weight: float = 1.0, safety_weight: float = 10.0,
+                   aux_weight: float = 0.01, mtp_weight: float = 0.3,
+                   margin: float = 0.0) -> Dict[str, torch.Tensor]:
+    """The reference's joint objective (ref :37).
 
     lm      : next-token CE of the server tower
     monitor : MSE(fhat, monitor_target), the paper's approximation term
-    safety  : hinge on u < f, the paper's safety requirement in learned form
+    safety  : hinge on u < f (+ margin), the paper's safety requirement in
+              learned form
     aux     : MoE load balance (0 for dense backbones)
+    mtp     : with an MTP head (``out["mtp_logits"]``), the CE of the
+              labels shifted one more step, the last two positions left
+              out; added at ``mtp_weight``
     """
-    lm = cross_entropy(out["logits"], batch["labels"])
+    labels = batch["labels"]
+    lm = cross_entropy(out["logits"], labels)
     f = batch["monitor_target"].float()
     monitor = torch.mean((out["fhat"] - f) ** 2)
-    safety = torch.mean(F.relu(f - out["u"]) ** 2)
+    safety = torch.mean(F.relu(f - out["u"] + margin) ** 2)
     total = (lm + monitor_weight * monitor + safety_weight * safety
-             + AUX_WEIGHT * out["aux_loss"])
-    return {"lm": lm, "monitor": monitor, "safety": safety,
-            "aux": out["aux_loss"], "total": total}
+             + aux_weight * out["aux_loss"])
+    parts = {"lm": lm, "monitor": monitor, "safety": safety,
+             "aux": out["aux_loss"]}
+    if out.get("mtp_logits") is not None:
+        mtp_labels = torch.roll(labels, -1, 1)
+        mtp = cross_entropy(out["mtp_logits"][:, :-2], mtp_labels[:, :-2])
+        total = total + mtp_weight * mtp
+        parts["mtp"] = mtp
+    parts["total"] = total
+    return parts

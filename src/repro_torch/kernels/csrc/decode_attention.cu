@@ -107,9 +107,16 @@ __host__ __device__ constexpr int padded_dim() {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
+__host__ __device__ constexpr int pow2_floor(int x) {
+  return x >= 16 ? 16 : x >= 8 ? 8 : x >= 4 ? 4 : x >= 2 ? 2 : 1;
+}
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
+}
+
 // the K and V ring: 2 stages x kTile rows each; after the cache loop the
 // same bytes hold the per-warp partial outputs [kWarps][G][DP] (f32), which
-// always fit: 16 G DP <= 128 DP <= 256 D bytes
+// always fit: 16 G DP <= 128 DP <= 256 D bytes (G <= 8)
 template <typename T, int D>
 constexpr size_t ring_bytes() {
   return 2 * 2 * (size_t)kTile * D * sizeof(T);
@@ -128,8 +135,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Sums each of N values over the TPP threads of an aligned group (a power of
-// two <= 32) so that each thread ends with max(N / TPP, 1) totals: while a
+// Sums each of N values (a power of two) over the TPP threads of an aligned
+// group (a power of two <= 32) so that each thread ends with max(N / TPP, 1)
+// totals: while a
 // thread holds more than one value it keeps the upper or lower half at each
 // shuffle level (by its bit of `lane`) and adds the partner's copy of it;
 // then plain butterfly levels.  Totals land in v[0 .. max(N / TPP, 1)).
@@ -158,6 +166,9 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
 // At most 128 registers a thread at G <= 4: four blocks an SM, enough to
 // hold every cluster of the planned splits at once.  (Five an SM made the
 // G = 4 instantiations spill and measured slower at the planned splits.)
+// G = 5 and 6 (qwen2.5-32b's 40/8 heads, mixtral's 48/8) keep the G = 8
+// bound of two blocks an SM: 264 resident blocks hold the 256 of the
+// planned split at their server shapes (B = 8, 8 kv heads, 4 splits).
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads, G <= 4 ? 4 : 2)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -252,18 +263,24 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // summed over the TPP threads of a row by a reduce-scatter (each
     // shuffle level halves the values a thread keeps): log2(TPP) levels
     // for all of them where a reduction per value would take PC * G times
-    // that.  After it, value kk of this thread is the total of index
+    // that.  PC is a power of two, so it divides RPT; the reduce-scatter
+    // halves a power of two of values, so a G that is not one (5, 6) pads
+    // its NV = PC * G values with zeros to NVP (2 rows x 5 or 6 heads: 16).
+    // After it, value kk of this thread is the total of index
     // (lane / SHARE) * KV + kk, index = pass * G + head within the chunk
-    // (NV values over TPP threads: KV = NV / TPP each, at least 1; with
-    // fewer values than threads SHARE = TPP / NV threads hold each total,
-    // and the first of them writes it).
-    constexpr int PC = RPT < 16 / G ? RPT : 16 / G;
+    // (NVP values over TPP threads: KV = NVP / TPP each, at least 1; with
+    // fewer values than threads SHARE = TPP / NVP threads hold each total,
+    // and the first of them writes it; the padding's totals go unwritten).
+    constexpr int PC = pow2_floor(RPT < 16 / G ? RPT : 16 / G);
     constexpr int NV = PC * G;
-    constexpr int KV = NV >= TPP ? NV / TPP : 1;
-    constexpr int SHARE = NV >= TPP ? 1 : TPP / NV;
+    constexpr int NVP = pow2_ceil(NV);
+    constexpr int KV = NVP >= TPP ? NVP / TPP : 1;
+    constexpr int SHARE = NVP >= TPP ? 1 : TPP / NVP;
 #pragma unroll
     for (int i0 = 0; i0 < RPT; i0 += PC) {
-      float v[NV];
+      float v[NVP];
+#pragma unroll
+      for (int i = NV; i < NVP; ++i) v[i] = 0.f;
 #pragma unroll
       for (int i = 0; i < PC; ++i) {
         const int j = (i0 + i) * RPI + grp;
@@ -278,13 +295,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int e = 0; e < kEPT; ++e) v[i * G + g] += qr[g][e] * kx[e];
         }
       }
-      reduce_scatter<NV, TPP>(v, lane);
+      reduce_scatter<NVP, TPP>(v, lane);
       if (lane % SHARE == 0) {
 #pragma unroll
         for (int kk = 0; kk < KV; ++kk) {
           const int idx = (lane / SHARE) * KV + kk;
           const int j = (i0 + idx / G) * RPI + grp;
-          s_p[idx % G][j] = t0 + j < r_end ? v[kk] * scale : -INFINITY;
+          if (idx < NV)
+            s_p[idx % G][j] = t0 + j < r_end ? v[kk] * scale : -INFINITY;
         }
       }
     }
@@ -469,7 +487,9 @@ int max_clusters(int n_split, int* count) {
 #define DECODE_CASES(DT, T, F, ...)                                           \
   DECODE_D(DT, T, 32, F, __VA_ARGS__) DECODE_D(DT, T, 64, F, __VA_ARGS__)     \
   DECODE_D(DT, T, 112, F, __VA_ARGS__) DECODE_D(DT, T, 128, F, __VA_ARGS__)   \
-  DECODE_D(DT, T, 256, F, __VA_ARGS__)
+  DECODE_D(DT, T, 256, F, __VA_ARGS__)                                        \
+  case DT * 10000 + 128 * 10 + 5: return F<T, 128, 5>(__VA_ARGS__);           \
+  case DT * 10000 + 128 * 10 + 6: return F<T, 128, 6>(__VA_ARGS__);
 #define DECODE_D(DT, T, DD, F, ...)                                           \
   case DT * 10000 + DD * 10 + 1: return F<T, DD, 1>(__VA_ARGS__);             \
   case DT * 10000 + DD * 10 + 2: return F<T, DD, 2>(__VA_ARGS__);             \
@@ -483,7 +503,8 @@ bool valid_split(int n_split) {
 }  // namespace
 
 // q, out: (B, Hkv*G, D); k, v: (B, C, Hkv, D); pos: (B,) int32; all
-// contiguous, 16-byte aligned, on one device.  dtype: 0 = bfloat16,
+// contiguous, 16-byte aligned, on one device.  G in (1, 2, 4, 8) at every
+// D, and G = 5 or 6 at D = 128.  dtype: 0 = bfloat16,
 // 1 = float32.  n_split: blocks per cluster along the cache axis, 1, 2, 4
 // or 8 (kernels/decode_attention.py `n_split`).  Returns the cudaError_t of
 // the launch (0 on success).

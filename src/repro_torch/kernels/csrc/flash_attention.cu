@@ -8,6 +8,9 @@
 // over the columns c allowed by the causal mask (c <= r; also c > r - window
 // when window > 0), plus the per-row log-sum-exp lse[b, h, r] in f32, which
 // the backward (kernels/flash_attention.py, in tensor ops) uses to rebuild P.
+// Values may be narrower than keys (DV < D): DeepSeek's MLA prefill has
+// q and k 192 wide (128 nope + 64 rope columns) and v 128 wide; o is then
+// DV wide and the scale stays 1/sqrt(D).
 //
 // What bounds it: operations.  At the training path's server shape
 // (B=2, S=T=4096, 32/8 heads, D=128, causal) the two products take
@@ -26,7 +29,12 @@
 //   mbarrier for K, one for V (completed by the copies' byte counts) and an
 //   "empty" one the consumers' 8 warps arrive at when they are done with it.
 // - A row of 128 bytes holds 64 bf16, so a tile is loaded as DP/64 boxes of
-//   64 columns, DP being D rounded up to 64 or 128.  At D = 112 (zamba2's
+//   64 columns, DP being D rounded up to 64 or 128 (or D = 192, three
+//   boxes); V's tiles have boxes of their own, DVP/64 of them, DVP being DV
+//   rounded the same way.  At D = 192, DV = 128 the 2-stage ring with Q
+//   takes 1024 + 2 (128 x 192 + 2 (128 x 192 + 128 x 128)) = 214,016 bytes
+//   of the 232,448 a block may have (with V at 192 columns it would not
+//   fit).  At D = 112 (zamba2's
 //   shared block) the second box covers columns 64..127 of a map whose
 //   inner extent is 112: TMA fills 112..127 with zeros, which add nothing to
 //   Q K^T, and P V's extra output columns are never stored (1/8 of the
@@ -35,7 +43,7 @@
 //   the same way and masked by index.
 // - Each consumer warpgroup runs S = Q K^T as wgmma m64n128k16 with both
 //   operands from shared memory (K-major), and O += P V as wgmma m64nDPk16
-//   with P from registers and V's tile as the MN-major B operand.  The
+//   with P from registers and V's tile as the MN-major B operand (N = DVP).  The
 //   accumulator fragment of S is the A fragment of P V (rows 16w + lane/4
 //   and +8, column pairs 2 (lane % 4)), so the online softmax runs in
 //   registers: the row max and row sum are reductions over the 4 threads of
@@ -79,13 +87,16 @@ constexpr int kStages = 2;
 
 // D rounded up to a whole number of 64-column (128-byte) boxes
 template <int D>
-__host__ __device__ constexpr int box_cols() { return D <= 64 ? 64 : 128; }
+__host__ __device__ constexpr int box_cols() {
+  return D <= 64 ? 64 : D <= 128 ? 128 : 192;
+}
 
-template <int D>
+template <int D, int DV>
 constexpr size_t tc_smem_bytes() {
   // Q, then kStages x (K, V); 1024 bytes of slack to align the swizzle atoms
   return 1024 + 2 * ((size_t)kQRows * box_cols<D>()
-                     + 2 * (size_t)kStages * kKRows * box_cols<D>());
+                     + (size_t)kStages * kKRows
+                           * (box_cols<D>() + box_cols<DV>()));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -292,7 +303,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsTc, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -301,12 +312,16 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
                    int S, int Tk, int Hq, int G, float scale_log2,
                    int window) {
   constexpr int DP = box_cols<D>();
+  constexpr int DVP = box_cols<DV>();
+  static_assert(DVP <= 128, "the PV product is at most 128 wide");
   constexpr int BK = kKRows;
-  constexpr int NB = DP / 64;                // boxes per row
+  constexpr int NB = DP / 64;                // boxes per Q or K row
+  constexpr int NBV = DVP / 64;              // boxes per V row
   constexpr int Q_BOX = kQRows * 64;         // elements of one Q box
   constexpr int KV_BOX = BK * 64;            // elements of one K or V box
   constexpr uint32_t Q_BYTES = 2u * kQRows * DP;
-  constexpr uint32_t KV_BYTES = 2u * BK * DP;
+  constexpr uint32_t K_BYTES = 2u * BK * DP;
+  constexpr uint32_t V_BYTES = 2u * BK * DVP;
 
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
@@ -316,7 +331,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   __nv_bfloat16* sK = sQ + NB * Q_BOX;              // [stage][box][BK][64]
-  __nv_bfloat16* sV = sK + kStages * NB * KV_BOX;   // [stage][box][BK][64]
+  __nv_bfloat16* sV = sK + kStages * NB * KV_BOX;   // [stage][vbox][BK][64]
 
   const int h = blockIdx.x % Hq;
   const int b = blockIdx.x / Hq;
@@ -351,16 +366,16 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
         const int k0 = k_begin + i * BK;
-        mbar_expect_tx(&k_full[s], KV_BYTES);
+        mbar_expect_tx(&k_full[s], K_BYTES);
 #pragma unroll
         for (int c = 0; c < NB; ++c)
           tma_load(sK + (s * NB + c) * KV_BOX, &kmap, &k_full[s], 64 * c, hk,
                    k0, b);
-        mbar_expect_tx(&v_full[s], KV_BYTES);
+        mbar_expect_tx(&v_full[s], V_BYTES);
 #pragma unroll
-        for (int c = 0; c < NB; ++c)
-          tma_load(sV + (s * NB + c) * KV_BOX, &vmap, &v_full[s], 64 * c, hk,
-                   k0, b);
+        for (int c = 0; c < NBV; ++c)
+          tma_load(sV + (s * NBV + c) * KV_BOX, &vmap, &v_full[s], 64 * c,
+                   hk, k0, b);
       }
     }
     return;
@@ -373,9 +388,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
   const int row0 = q0 + 64 * wg + 16 * (t / 32) + lane / 4;  // and row0 + 8
   const int col_in = 2 * (lane % 4);  // first column of each 8-column chunk
 
-  float acc[DP / 2];
+  float acc[DVP / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DVP / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max, base 2, scaled
   float l[2] = {0.f, 0.f};              // this thread's share of the sum
 
@@ -444,7 +459,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < DVP / 8; ++j) {
       acc[4 * j] *= alpha[0];
       acc[4 * j + 1] *= alpha[0];
       acc[4 * j + 2] *= alpha[1];
@@ -457,16 +472,16 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<DP>(acc, pa[kk],
-                   desc_sw128(sV + s * NB * KV_BOX + 16 * 64 * kk,
-                              2u * KV_BOX));
+      wgmma_rs<DVP>(acc, pa[kk],
+                    desc_sw128(sV + s * NBV * KV_BOX + 16 * 64 * kk,
+                               2u * KV_BOX));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // epilogue: o and lse by index, rows < S, columns < D
+  // epilogue: o and lse by index, rows < S, columns < DV
   constexpr float kLn2 = 0.6931471805599453f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -474,11 +489,11 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
     const float li = fmaxf(quad_sum(l[r]), 1e-30f);
     if (row >= S) continue;
     const float inv = 1.f / li;
-    __nv_bfloat16* orow = o + (((size_t)b * S + row) * Hq + h) * D;
+    __nv_bfloat16* orow = o + (((size_t)b * S + row) * Hq + h) * DV;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < DVP / 8; ++j) {
       const int col = 8 * j + col_in;
-      if (col < D)
+      if (col < DV)
         *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
             acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
     }
@@ -495,9 +510,10 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
 // rg = tid / 16, cg = tid % 16), so the 16 threads of a half-warp own whole
 // rows and the online-softmax row max and row sum are half-warp shuffles;
 // p goes to shared memory; then each thread accumulates an 8 x (DP/16)
-// patch of the output, DP being D rounded up to a multiple of 32 (at
-// D = 112 the last two threads of a row own only columns >= D, which V's
-// tile holds as zeros and the store skips).  Shared rows are padded by 4
+// patch of the output, DP being DV rounded up to a multiple of 32 (at
+// DV = 112 the last two threads of a row own only columns >= DV, which V's
+// tile holds as zeros and the store skips).  DV may be narrower than D
+// (192 over 128: 150,528 bytes of shared memory).  Shared rows are padded by 4
 // floats so the 16-byte reads of a half-warp fall in distinct banks.
 constexpr int kThreadsF32 = 128;
 constexpr int kBQ = 64;  // query rows per block
@@ -543,29 +559,30 @@ __host__ __device__ constexpr int padded_dim() {
   return (D + 31) / 32 * 32;
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * ((size_t)kBK * padded_dim<D>()  // sV
+  return sizeof(float) * ((size_t)kBK * padded_dim<DV>()  // sV
                           + (size_t)kBQ * (D + kPad)       // sQ
                           + (size_t)kBK * (D + kPad)       // sK
                           + (size_t)kBQ * (kBK + kPad));   // sP
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     float* __restrict__ lse, int S, int Tk, int Hkv, int G,
                     float scale, int window) {
-  constexpr int DP = padded_dim<D>();  // sV row stride
+  constexpr int DP = padded_dim<DV>();  // sV row stride
   constexpr int NJ = DP / 16;       // output columns per thread
   constexpr int RS = D + kPad;      // sQ / sK row stride
   constexpr int PS = kBK + kPad;    // sP row stride
-  constexpr int C8 = D / 8;         // 8-element chunks per row
-  static_assert(D % 16 == 0 && DP <= 128, "head dim 32, 64, 112 or 128");
+  constexpr int C8 = D / 8;         // 8-element chunks per Q or K row
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DP <= 128,
+                "head dims 32, 64, 112, 128, or 192 over 128");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sV = reinterpret_cast<float*>(smem_raw);  // [kBK][DP], cols >= D zero
+  float* sV = reinterpret_cast<float*>(smem_raw);  // [kBK][DP], cols >= DV 0
   float* sQ = sV + kBK * DP;                       // [kBQ][RS]
   float* sK = sQ + kBQ * RS;                       // [kBK][RS]
   float* sP = sK + kBK * RS;                       // [kBQ][PS]
@@ -582,10 +599,11 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q_last = min(q0 + kBQ, S) - 1;
 
   const size_t q_stride = (size_t)Hq * D;
-  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t k_stride = (size_t)Hkv * D;
+  const size_t v_stride = (size_t)Hkv * DV;
   const float* qb = q + ((size_t)b * S * Hq + h) * D;
   const float* kb = k + ((size_t)b * Tk * Hkv + hk) * D;
-  const float* vb = v + ((size_t)b * Tk * Hkv + hk) * D;
+  const float* vb = v + ((size_t)b * Tk * Hkv + hk) * DV;
 
   for (int c = tid; c < kBQ * C8; c += kThreadsF32) {
     const int r = c / C8;
@@ -610,13 +628,17 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
+    for (int c = tid; c < kBK * C8; c += kThreadsF32) {
+      const int j = c / C8;
+      const int d0 = (c % C8) * 8;
+      row8_to_shared(kb + (size_t)(k0 + j) * k_stride + d0, k0 + j < Tk,
+                     sK + j * RS + d0);
+    }
     for (int c = tid; c < kBK * (DP / 8); c += kThreadsF32) {
       const int j = c / (DP / 8);
       const int d0 = (c % (DP / 8)) * 8;
-      const bool ok = k0 + j < Tk && d0 < D;
-      const size_t off = (size_t)(k0 + j) * kv_stride + d0;
-      if (d0 < D) row8_to_shared(kb + off, ok, sK + j * RS + d0);
-      row8_to_shared(vb + off, ok, sV + j * DP + d0);
+      row8_to_shared(vb + (size_t)(k0 + j) * v_stride + d0,
+                     k0 + j < Tk && d0 < DV, sV + j * DP + d0);
     }
     __syncthreads();
 
@@ -714,10 +736,10 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + rg + 8 * i;
     if (r >= S) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    float* orow = o + (((size_t)b * S + r) * Hq + h) * D + cg * NJ;
+    float* orow = o + (((size_t)b * S + r) * Hq + h) * DV + cg * NJ;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
-      if (cg * NJ + jj < D) orow[jj] = acc[i][jj] / li;
+      if (cg * NJ + jj < DV) orow[jj] = acc[i][jj] / li;
     if (cg == 0)
       lse[((size_t)b * Hq + h) * S + r] =
           m[i] == -INFINITY ? -INFINITY : m[i] + logf(li);
@@ -771,7 +793,7 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int S, int Tk, int Hkv, int G,
               float scale, int window, int block_q, int block_k,
@@ -782,10 +804,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   CUtensorMap qmap, kmap, vmap;
   if (!encode_map(&qmap, q, B, S, Hq, D, kQRows) ||
       !encode_map(&kmap, k, B, Tk, Hkv, D, kKRows) ||
-      !encode_map(&vmap, v, B, Tk, Hkv, D, kKRows))
+      !encode_map(&vmap, v, B, Tk, Hkv, DV, kKRows))
     return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = tc_smem_bytes<D>();
-  auto kern = flash_attention_tc<D>;
+  constexpr size_t smem = tc_smem_bytes<D, DV>();
+  auto kern = flash_attention_tc<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -796,13 +818,13 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int S, int Tk, int Hkv, int G, float scale,
                int window, int block_q, int block_k, cudaStream_t stream) {
   if (block_q != kBQ || block_k != kBK) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = f32_smem_bytes<D>();
-  auto kern = flash_attention_f32<D>;
+  constexpr size_t smem = f32_smem_bytes<D, DV>();
+  auto kern = flash_attention_f32<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -816,33 +838,38 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, o: (B, S, Hkv*G, D); k, v: (B, T, Hkv, D); lse: (B, Hkv*G, S) f32; all
-// contiguous, 16-byte aligned, on one device.  dtype: 0 = bfloat16 (the
+// q: (B, S, Hkv*G, D); k: (B, T, Hkv, D); v: (B, T, Hkv, Dv); o: (B, S,
+// Hkv*G, Dv); lse: (B, Hkv*G, S) f32; all contiguous, 16-byte aligned, on
+// one device.  Dv == D in (32, 64, 112, 128), or D = 192 over Dv = 128.  dtype: 0 = bfloat16 (the
 // tensor-core kernel), 1 = float32 (the scalar kernel).  window = 0: no
 // window.  block_q, block_k: the tiling the caller planned
 // (kernels/flash_attention.py `flash_plan`), checked against the kernel's.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, float* lse, int B, int S, int T,
-                               int Hkv, int G, int D, int dtype, float scale,
+                               int Hkv, int G, int D, int Dv, int dtype,
+                               float scale,
                                int window, int block_q, int block_k,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_ARGS q, k, v, o, lse, B, S, T, Hkv, G, scale, window, block_q, \
                    block_k, s
+  const int dd = D * 1000 + Dv;
   if (dtype == 0) {
-    switch (D) {
-      case 32: return launch_tc<32>(FLASH_ARGS);
-      case 64: return launch_tc<64>(FLASH_ARGS);
-      case 112: return launch_tc<112>(FLASH_ARGS);
-      case 128: return launch_tc<128>(FLASH_ARGS);
+    switch (dd) {
+      case 32032: return launch_tc<32, 32>(FLASH_ARGS);
+      case 64064: return launch_tc<64, 64>(FLASH_ARGS);
+      case 112112: return launch_tc<112, 112>(FLASH_ARGS);
+      case 128128: return launch_tc<128, 128>(FLASH_ARGS);
+      case 192128: return launch_tc<192, 128>(FLASH_ARGS);
     }
   } else if (dtype == 1) {
-    switch (D) {
-      case 32: return launch_f32<32>(FLASH_ARGS);
-      case 64: return launch_f32<64>(FLASH_ARGS);
-      case 112: return launch_f32<112>(FLASH_ARGS);
-      case 128: return launch_f32<128>(FLASH_ARGS);
+    switch (dd) {
+      case 32032: return launch_f32<32, 32>(FLASH_ARGS);
+      case 64064: return launch_f32<64, 64>(FLASH_ARGS);
+      case 112112: return launch_f32<112, 112>(FLASH_ARGS);
+      case 128128: return launch_f32<128, 128>(FLASH_ARGS);
+      case 192128: return launch_f32<192, 128>(FLASH_ARGS);
     }
   }
 #undef FLASH_ARGS

@@ -29,6 +29,9 @@ NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (32, 64, 112, 128, 256)
 GROUPS = (1, 2, 4, 8)
+# group sizes that are not powers of two, each at the head dims it is
+# built for: qwen2.5-32b's 40/8 heads and mixtral's 48/8, both 128 wide
+WIDE_GROUPS = {5: (128,), 6: (128,)}
 # the split of the cache axis: a cluster of at most 8 blocks (the portable
 # cluster size), at least 2, enough blocks for about two per SM of the
 # H100's 132 (256, the power of two below 264), and no split of fewer than
@@ -127,9 +130,11 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} vs cache "
                          f"{tuple(k_cache.shape)}")
     G = Hq // Hkv
-    if D not in HEAD_DIMS or G not in GROUPS:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS} and "
-                         f"Hq/Hkv in {GROUPS}, got D={D}, G={G}")
+    if not (D in HEAD_DIMS and G in GROUPS) \
+            and D not in WIDE_GROUPS.get(G, ()):
+        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS} with Hq/Hkv "
+                         f"in {GROUPS}, or Hq/Hkv and head_dims "
+                         f"{WIDE_GROUPS}, got D={D}, G={G}")
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise ValueError("kernel takes q and caches of one dtype, bfloat16 "

@@ -66,8 +66,8 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, window: int = 0):
-    """q: (B, S, Hq, D); k, v: (B, T, Hkv, D) -> (B, S, Hq, D), causal,
-    differentiable."""
+    """q: (B, S, Hq, D); k: (B, T, Hkv, D); v: (B, T, Hkv, Dv) -> (B, S,
+    Hq, Dv), causal, differentiable."""
     return FlashAttention.apply(q, k, v, window)
 
 

@@ -25,7 +25,7 @@ from repro_torch.configs import registry
 from repro_torch.data import tokens as tok
 from repro_torch.launch.steps import make_train_step
 from repro_torch.training import checkpoint as ckpt
-from repro_torch.training.optimizer import AdamW
+from repro_torch.training.optimizer import AdamW, keeps_masters
 from repro_torch.training.schedule import warmup_cosine
 
 
@@ -64,7 +64,7 @@ def main(argv=None) -> None:
     opt = AdamW(lr=warmup_cosine(args.lr, 100, max(args.steps, 1000)))
     step_fn = make_train_step(cfg, opt)
     model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(0), dev)
-    opt_state = opt.init(trainable(model))
+    opt_state = opt.init(trainable(model), masters=keeps_masters(cfg))
 
     batches = tok.lm_batches(0, cfg, args.batch, args.seq)
     t0 = time.time()

@@ -1,5 +1,5 @@
 """Uniform backbone API (``models/api.py``): the rest of the port talks to
-these functions only.  The dense and hybrid families are ported."""
+these functions only.  The dense, moe and hybrid families are ported."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +9,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import hybrid, transformer
 
 _FAMILY = {"dense": (transformer, transformer.TransformerLM),
+           "moe": (transformer, transformer.TransformerLM),
            "hybrid": (hybrid, hybrid.HybridLM)}
 
 
@@ -38,9 +39,14 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens_t, pos, *,
-                with_logits: bool = True, active=None):
+                with_logits: bool = True, active=None,
+                route_each_row: bool = False):
+    """``route_each_row``: an MoE backbone routes each row as its own
+    group (the per-element catch-up); no other family routes."""
+    kw = {"route_each_row": route_each_row} if cfg.is_moe else {}
     return _impl(cfg).decode_step(params, cfg, cache, tokens_t, pos,
-                                  with_logits=with_logits, active=active)
+                                  with_logits=with_logits, active=active,
+                                  **kw)
 
 
 def forward(params, cfg: ArchConfig, batch, *, with_logits: bool = True):

@@ -27,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import pos_vector
 from repro_torch.models.base import (Block, block_decode, block_prefill, cdt,
-                                     decode_capacity, init_kv_cache, pdt)
+                                     decode_capacity, init_kv_cache,
+                                     layer_cache, pdt)
 from repro_torch.nn.embedding import Embedding, embed, unembed
 from repro_torch.nn.module import resolve_device
 from repro_torch.nn.norms import RMSNorm, rmsnorm
@@ -134,7 +135,7 @@ def forward(params: HybridLM, cfg: ArchConfig, batch, *,
     def super_body(blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
         for blk in blocks:
             x = _mamba_fwd(blk, x, cfg)
-        return block_prefill(params.shared, x, rope, cfg)
+        return block_prefill(params.shared, x, rope, cfg)[0]
 
     def tail_body(blk: MambaBlock, x: torch.Tensor) -> torch.Tensor:
         return _mamba_fwd(blk, x, cfg)
@@ -187,8 +188,8 @@ def decode_step(params: HybridLM, cfg: ArchConfig, cache, tokens_t, pos, *,
                               active=active)
         if li % k == k - 1 and li // k < n_super:  # end of a super-block
             s = li // k
-            h = block_decode(params.shared, h, kv.k[s], kv.v[s], posv, rope,
-                             cfg, window=win, active=active)
+            h = block_decode(params.shared, h, layer_cache(kv, s), posv,
+                             rope, cfg, window=win, active=active)
     h = rmsnorm(params.ln_f, h, cfg.norm_eps)
     if not with_logits:
         return None, h

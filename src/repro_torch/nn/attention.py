@@ -1,5 +1,6 @@
 """GQA attention: prefill over a whole sequence (``nn/attention.py:184``)
-and single-token decode (``nn/attention.py:136-226``).
+and single-token decode (``nn/attention.py:136-226``); and DeepSeek's
+multi-head latent attention, MLA (``nn/attention.py:249-342``).
 
 Prefill is ``kernels.ops.flash_attention``: the plain version of the
 reference's ``chunked_attention`` for CPU tensors, the Hopper flash kernel
@@ -22,12 +23,14 @@ come back bit-unchanged, as the reference's masked decode guarantees.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.nn.module import Linear, linear
 from repro_torch.nn.rotary import rotate
 
@@ -78,7 +81,8 @@ def write_rows(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor,
     when None); other rows keep their slot contents bit-for-bit."""
     rows = torch.arange(cache.shape[0], device=cache.device)
     if active is not None:
-        new = torch.where(active[:, None, None], new, cache[rows, slot])
+        keep = active.reshape((-1,) + (1,) * (new.dim() - 1))
+        new = torch.where(keep, new, cache[rows, slot])
     cache[rows, slot] = new
 
 
@@ -104,4 +108,111 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
     write_rows(cache_v, slot, v.to(cache_v.dtype), active)
     o = ops.decode_attention(q, cache_k, cache_v, pos)
     return linear(p.wo, o.reshape(B, n_heads * head_dim),
+                  compute_dtype=compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA: the cache holds the compressed latent c_kv (kv_lora_rank) and the
+# decoupled rope key (qk_rope_dim) per token, 576 values at DeepSeek-V3's
+# widths where GQA would keep 2 * 128 heads * 128.
+# ---------------------------------------------------------------------------
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor    # (L, B, C, kv_lora_rank) in a model cache
+    krope: torch.Tensor  # (L, B, C, qk_rope_dim)
+
+
+class MLA(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, *, q_lora: int,
+                 kv_lora: int, qk_nope: int, qk_rope: int, v_dim: int,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.wq_a = Linear(d_model, q_lora, **kw)
+        self.wq_b = Linear(q_lora, n_heads * (qk_nope + qk_rope), **kw)
+        self.wkv_a = Linear(d_model, kv_lora + qk_rope, **kw)
+        self.wkv_b = Linear(kv_lora, n_heads * (qk_nope + v_dim), **kw)
+        self.wo = Linear(n_heads * v_dim, d_model, **kw)
+
+    def init_(self, gen: torch.Generator):
+        for lin in (self.wq_a, self.wq_b, self.wkv_a, self.wkv_b, self.wo):
+            lin.init_(gen)
+
+
+def _mla_q(p: MLA, x, *, n_heads, qk_nope, qk_rope, rope, compute_dtype):
+    """(q_nope, roped q_rope), heads on axis -2."""
+    q = linear(p.wq_b, linear(p.wq_a, x, compute_dtype=compute_dtype),
+               compute_dtype=compute_dtype)
+    q = q.reshape(q.shape[:-1] + (n_heads, qk_nope + qk_rope))
+    return q[..., :qk_nope], rotate(q[..., qk_nope:], *rope)
+
+
+def mla_prefill(p: MLA, x: torch.Tensor, rope, *, n_heads: int,
+                qk_nope: int, qk_rope: int, v_dim: int, window: int = 0,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x: (B, S, d_model); ``rope``: (cos, sin) of positions 0..S-1 at the
+    rope width.  Keys and queries are qk_nope + qk_rope wide (the rope
+    key shared by every head), values v_dim wide: the flash attention
+    takes Dqk != Dv, scaled by 1/sqrt(Dqk) (ref ``_mla_qkv`` :284 and
+    ``mla_prefill`` :307)."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, n_heads=n_heads, qk_nope=qk_nope,
+                            qk_rope=qk_rope, rope=rope,
+                            compute_dtype=compute_dtype)
+    kv_a = linear(p.wkv_a, x, compute_dtype=compute_dtype)
+    ckv, k_rope = kv_a[..., :-qk_rope], kv_a[..., -qk_rope:]
+    k_rope = rotate(k_rope[:, :, None], *rope)              # (B, S, 1, r)
+    kv = linear(p.wkv_b, ckv, compute_dtype=compute_dtype).reshape(
+        B, S, n_heads, qk_nope + v_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([kv[..., :qk_nope],
+                   k_rope.expand(B, S, n_heads, qk_rope)], dim=-1)
+    v = kv[..., qk_nope:].contiguous()
+    o = ops.flash_attention(q, k, v, window=window)
+    return linear(p.wo, o.reshape(B, S, n_heads * v_dim),
+                  compute_dtype=compute_dtype)
+
+
+def mla_decode(p: MLA, x: torch.Tensor, ckv: torch.Tensor,
+               krope: torch.Tensor, pos: torch.Tensor, rope, *, n_heads: int,
+               qk_nope: int, qk_rope: int, v_dim: int, kv_lora: int,
+               compute_dtype=torch.bfloat16,
+               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Latent-cache decode with the absorbed products (ref :313-342).
+    x: (B, d_model); pos: (B,) int32; ``rope``: the step's (cos, sin) at
+    the rope width; caches (B, C, kv_lora) and (B, C, qk_rope), written in
+    place at ``pos`` (clamped, as ``dynamic_update_slice`` clamps) for the
+    ``active`` rows.  q_nope goes through the key half of W^kv_b so the
+    scores read the cached latents directly.  Rounding points are the
+    reference's: the latents and the rope keys are read in the cache
+    dtype, every product sums in f32.  Tensor ops: the reference runs
+    these einsums outside any Pallas kernel."""
+    B = x.shape[0]
+    C = ckv.shape[1]
+    q_nope, q_rope = _mla_q(p, x, n_heads=n_heads, qk_nope=qk_nope,
+                            qk_rope=qk_rope, rope=rope,
+                            compute_dtype=compute_dtype)
+    kv_a = linear(p.wkv_a, x, compute_dtype=compute_dtype)
+    ckv_t = kv_a[..., :-qk_rope]
+    krope_t = rotate(kv_a[:, None, -qk_rope:], *rope)[:, 0]
+    slot = torch.clamp(pos, 0, C - 1).long()
+    write_rows(ckv, slot, ckv_t.to(ckv.dtype), active)
+    write_rows(krope, slot, krope_t.to(krope.dtype), active)
+    wkv = p.wkv_b.w.to(compute_dtype).reshape(kv_lora, n_heads,
+                                              qk_nope + v_dim)
+    wk, wv = wkv[..., :qk_nope].float(), wkv[..., qk_nope:].float()
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope.float(), wk)   # (B, H, r)
+    scale = 1.0 / math.sqrt(qk_nope + qk_rope)
+    s = (torch.einsum("bhr,btr->bht", q_lat.to(ckv.dtype).float(),
+                      ckv.float())
+         + torch.einsum("bhr,btr->bht", q_rope.to(krope.dtype).float(),
+                        krope.float())) * scale
+    valid = torch.arange(C, device=x.device)[None, :] <= pos[:, None].long()
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    prob = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bht,btr->bhr", prob.to(ckv.dtype).float(),
+                         ckv.float())
+    o = torch.einsum("bhr,rhv->bhv", o_lat, wv)
+    return linear(p.wo, o.reshape(B, n_heads * v_dim).to(compute_dtype),
                   compute_dtype=compute_dtype)

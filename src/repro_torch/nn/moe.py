@@ -1,0 +1,199 @@
+"""Mixture of experts: a top-k router and static-capacity dispatch
+(``nn/moe.py``, the ``dense`` dispatch ``moe_apply``).
+
+As in the reference, each expert takes at most ``capacity`` tokens: the
+assignments to an expert are ranked in token order and those past the
+capacity are dropped (they fall through on the residual stream).  The
+kept tokens are gathered into one (E, C, d) buffer and the experts'
+SwiGLU is three stacked products over it, plain ``torch.bmm`` as the
+reference's einsums are plain XLA products outside any Pallas kernel.
+
+Routing groups.  The reference's static capacity makes the output depend
+on which tokens are routed together, and its call sites differ: its
+training forward routes all B*S tokens at once, and so does its batched
+decode (``decode_masked`` and the scan path), but its per-element catch-up
+(``engine.make_step_at``) vmaps singleton decodes, so each row is routed
+alone.  ``moe_apply(..., groups=n)`` routes n equal runs of consecutive
+tokens each on its own, with the capacity of one run; ``groups=B`` on a
+decode step is the reference's per-row routing in one dispatch.
+
+The buffer.  Whatever the groups, the kept tokens go into one buffer in
+token order, expert by expert: slot ``e * Cb + i`` holds the i-th kept
+token of expert e, with ``Cb = min(T, groups * C)`` (an expert takes at
+most one assignment per token).  With one group this is the reference's
+layout with its padding past T cut off; where no token is dropped (a
+decode of B <= 8 rows: C >= 8), per-row and batched routing fill the same
+buffer of the same shape, so the expert products see the same operands.
+
+The combine is deterministic: each token sums its top-k contributions,
+gathered from the expert outputs, in ascending expert order (the order of
+the reference's scatter-add over slots) in f32, one add a choice, where an
+``index_add_`` on CUDA would order the adds by atomics.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.nn.module import Linear, linear, normal_, param
+
+
+class SharedExpert(nn.Module):
+    """The always-on expert(s): ``w_gate``/``w_up`` (d, n_shared*f) and
+    ``w_down`` (n_shared*f, d), bare weights as in the reference's tree."""
+
+    def __init__(self, d_model: int, d_ff: int, *, dtype, device=None):
+        super().__init__()
+        self.w_gate = param((d_model, d_ff), dtype, device)
+        self.w_up = param((d_model, d_ff), dtype, device)
+        self.w_down = param((d_ff, d_model), dtype, device)
+
+
+class MoE(nn.Module):
+    """``router`` (f32 whatever the dtypes, as in the reference),
+    ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d) in the compute
+    dtype, and an optional ``shared`` expert."""
+
+    def __init__(self, d_model: int, moe_d_ff: int, n_experts: int, *,
+                 n_shared: int = 0, dtype=torch.float32, device=None):
+        super().__init__()
+        E, d, f = n_experts, d_model, moe_d_ff
+        self.router = Linear(d, E, dtype=torch.float32, device=device)
+        self.w_gate = param((E, d, f), dtype, device)
+        self.w_up = param((E, d, f), dtype, device)
+        self.w_down = param((E, f, d), dtype, device)
+        self.shared = SharedExpert(d, n_shared * f, dtype=dtype,
+                                   device=device) if n_shared else None
+
+    def init_(self, gen: torch.Generator):
+        d, f = self.w_gate.shape[1], self.w_gate.shape[2]
+        self.router.init_(gen)
+        for w, sd in ((self.w_gate, d), (self.w_up, d), (self.w_down, f)):
+            normal_(w, gen, 1.0 / math.sqrt(sd))
+        if self.shared is not None:
+            for w in (self.shared.w_gate, self.shared.w_up):
+                normal_(w, gen, 1.0 / math.sqrt(d))
+            normal_(self.shared.w_down, gen, 1.0 / math.sqrt(f))
+
+
+def expert_capacity(n_tokens: int, n_experts: int, top_k: int,
+                    capacity_factor: float) -> int:
+    c = int(math.ceil(n_tokens * top_k / n_experts * capacity_factor))
+    return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
+
+
+def _route(p: MoE, xf: torch.Tensor, n_experts: int, top_k: int):
+    """Router in f32 -> (top_p, top_i (T, k), aux).  ``aux`` is the
+    Switch/GShard load-balance loss over all T tokens."""
+    T = xf.shape[0]
+    probs = torch.softmax(linear(p.router, xf.float()), dim=-1)  # (T, E)
+    top_p, top_i = torch.topk(probs, top_k, dim=-1)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    me = probs.mean(dim=0)
+    ce = torch.bincount(top_i.reshape(-1), minlength=n_experts).float() \
+        / (T * top_k)
+    return top_p, top_i, n_experts * torch.sum(me * ce)
+
+
+def _exclusive_rank(onehot: torch.Tensor, groups: int) -> torch.Tensor:
+    """onehot (T, E) int: for each (token, expert), how many earlier tokens
+    of the same group chose that expert."""
+    T, E = onehot.shape
+    g = onehot.reshape(groups, T // groups, E)
+    return (torch.cumsum(g, dim=1) - g).reshape(T, E)
+
+
+def _slot_table(top_i: torch.Tensor, *, n_experts: int, C: int,
+                groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """(slot_tok (E*Cb,), slot_of (T, k), Cb).
+
+    An assignment (token t, choice j) to expert e is kept when fewer than
+    ``C`` earlier tokens of t's group chose e (the reference's stable
+    sort ranks them so); a kept one goes to slot ``e*Cb + i``, i its rank
+    among all kept assignments to e (token order).  ``slot_of[t, j]`` is
+    that slot, or the sentinel ``E*Cb`` when dropped; ``slot_tok[s]`` the
+    token in slot s, or the sentinel T when empty.  Integer work only, so
+    it is deterministic on every device."""
+    T, k = top_i.shape
+    E = n_experts
+    idx = top_i.long()
+    onehot = torch.zeros((T, E), dtype=torch.int32, device=idx.device)
+    onehot.scatter_(1, idx, 1)
+    keep = torch.gather(_exclusive_rank(onehot, groups), 1, idx) < C
+    kept = torch.zeros_like(onehot).scatter_(1, idx, keep.to(torch.int32))
+    rank = torch.gather(_exclusive_rank(kept, 1), 1, idx)
+    Cb = min(T, groups * C)
+    slot_of = torch.where(keep, idx * Cb + rank, E * Cb)
+    tok = torch.arange(T, device=idx.device)[:, None].expand(T, k)
+    slot_tok = torch.full((E * Cb + 1,), T, dtype=torch.long,
+                          device=idx.device)
+    slot_tok.scatter_(0, slot_of.reshape(-1),
+                      torch.where(keep, tok, T).reshape(-1))
+    return slot_tok[:E * Cb], slot_of, Cb
+
+
+def _expert_ffn(xf, slot_tok, wg, wu, wd, *, n_experts: int, Cb: int,
+                compute_dtype) -> torch.Tensor:
+    """Gather the kept tokens -> stacked expert SwiGLU: (E*Cb, d) outputs
+    in the compute dtype."""
+    T, d = xf.shape
+    xpad = torch.cat([xf.to(compute_dtype),
+                      torch.zeros((1, d), dtype=compute_dtype,
+                                  device=xf.device)], dim=0)
+    h = xpad[slot_tok].reshape(n_experts, Cb, d)
+    g = torch.bmm(h, wg.to(compute_dtype))
+    u = torch.bmm(h, wu.to(compute_dtype))
+    eo = torch.bmm(F.silu(g) * u, wd.to(compute_dtype))
+    return eo.reshape(n_experts * Cb, d)
+
+
+def _combine(eo: torch.Tensor, slot_of: torch.Tensor, top_i: torch.Tensor,
+             top_p: torch.Tensor) -> torch.Tensor:
+    """y[t] = sum_j w[t, j] * eo[slot_of[t, j]] in f32, choices in
+    ascending expert order, each product rounded to eo's dtype first as
+    the reference's ``contrib``; dropped choices read a zero row."""
+    T, k = slot_of.shape
+    eo = torch.cat([eo, torch.zeros((1, eo.shape[1]), dtype=eo.dtype,
+                                    device=eo.device)], dim=0)
+    order = torch.argsort(top_i, dim=1)
+    slots = torch.gather(slot_of, 1, order)
+    w = torch.gather(top_p, 1, order).to(eo.dtype)
+    y = torch.zeros((T, eo.shape[1]), dtype=torch.float32, device=eo.device)
+    for j in range(k):
+        y = y + (eo[slots[:, j]] * w[:, j, None]).float()
+    return y
+
+
+def _shared_ffn(p: SharedExpert, xf: torch.Tensor, compute_dtype):
+    x = xf.to(compute_dtype)
+    g = x @ p.w_gate.to(compute_dtype)
+    u = x @ p.w_up.to(compute_dtype)
+    return ((F.silu(g) * u) @ p.w_down.to(compute_dtype)).float()
+
+
+def moe_apply(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float = 1.25, compute_dtype=torch.bfloat16,
+              groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux_loss f32).  The
+    B*S tokens are routed in ``groups`` equal runs of consecutive tokens,
+    each with the capacity of a run (see the module note)."""
+    B, S, d = x.shape
+    T = B * S
+    if T % groups:
+        raise ValueError(f"{T} tokens do not split into {groups} groups")
+    xf = x.reshape(T, d)
+    top_p, top_i, aux = _route(p, xf, n_experts, top_k)
+    C = expert_capacity(T // groups, n_experts, top_k, capacity_factor)
+    slot_tok, slot_of, Cb = _slot_table(top_i, n_experts=n_experts, C=C,
+                                        groups=groups)
+    eo = _expert_ffn(xf, slot_tok, p.w_gate, p.w_up, p.w_down,
+                     n_experts=n_experts, Cb=Cb, compute_dtype=compute_dtype)
+    y = _combine(eo, slot_of, top_i, top_p)
+    if p.shared is not None:
+        y = y + _shared_ffn(p.shared, xf, compute_dtype)
+    return y.reshape(B, S, d).to(x.dtype), aux
+

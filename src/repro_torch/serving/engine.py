@@ -25,20 +25,26 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api as model_api
-from repro_torch.nn.attention import KVCache
+from repro_torch.nn.attention import KVCache, MLACache
 from repro_torch.nn.module import resolve_device
 from repro_torch.nn.ssm import SSMCache
 
 # batch axis of every cache type, written out where the reference finds
 # it with an eval_shape probe (cache_batch_axes): KVCache leaves are
-# (layers, B, C, Hkv, D); SSMCache leaves (mamba layers, B, ...)
-CACHE_BATCH_AXIS = {KVCache: 1, SSMCache: 1}
+# (layers, B, C, Hkv, D); MLACache leaves (layers, B, C, width); SSMCache
+# leaves (mamba layers, B, ...).  An entry may be None (an MoE backbone
+# with no dense layers).
+CACHE_BATCH_AXIS = {KVCache: 1, MLACache: 1, SSMCache: 1}
+
+
+def _entries(cache):
+    return [e for e in cache.values() if e is not None]
 
 
 def zero_cache_rows(cache, rows: torch.Tensor) -> None:
     """Zero the selected batch rows (``rows``: (B,) bool) of every cache
     leaf, in place.  A re-leased slot starts exactly as a fresh cache."""
-    for entry in cache.values():
+    for entry in _entries(cache):
         axis = CACHE_BATCH_AXIS[type(entry)]
         for leaf in entry:
             shape = [1] * leaf.dim()
@@ -52,7 +58,7 @@ def permute_cache_rows(cache, perm: torch.Tensor) -> None:
     batch axes, which the correction server's lease defrag uses.  In
     place because the server's cache is the dict that ``step_at``
     writes."""
-    for entry in cache.values():
+    for entry in _entries(cache):
         axis = CACHE_BATCH_AXIS[type(entry)]
         for leaf in entry:
             leaf.copy_(leaf.index_select(axis, perm))
@@ -62,10 +68,13 @@ def step_at(params, cfg: ArchConfig, cache, tokens_t: torch.Tensor,
             pos: torch.Tensor, active: torch.Tensor, *,
             with_logits: bool = True):
     """Per-element decode: row i reads/writes its cache at ``pos[i]``;
-    rows with ``active[i] == False`` keep their cache bit-unchanged.
-    Returns (logits | None, hidden)."""
+    rows with ``active[i] == False`` keep their cache bit-unchanged, and
+    an MoE backbone routes each row as its own group, as the reference's
+    vmap over singleton decodes does (rows never compete for expert
+    capacity).  Returns (logits | None, hidden)."""
     return model_api.decode_step(params, cfg, cache, tokens_t, pos,
-                                 with_logits=with_logits, active=active)
+                                 with_logits=with_logits, active=active,
+                                 route_each_row=True)
 
 
 class ServeEngine:
@@ -135,8 +144,21 @@ class ServeEngine:
     def decode_masked(self, tokens_t: torch.Tensor, pos: int,
                       mask: torch.Tensor, *, with_logits: bool = True):
         """One dense decode at scalar ``pos`` where only ``mask`` rows
-        commit their cache writes.  ``self.pos`` is not advanced."""
-        return self.decode_at(tokens_t, pos, mask, with_logits=with_logits)
+        commit their cache writes, as the reference's ``decode_masked``:
+        every row decodes as in a plain batched step (an MoE backbone
+        routes all B rows together, the masked-out ones with the hidden
+        states the reference gives them), then the masked-out rows of
+        every cache leaf get their old contents back.  ``self.pos`` is
+        not advanced."""
+        rows = torch.nonzero(~torch.as_tensor(mask, device=self.device))[:, 0]
+        saved = [(leaf, CACHE_BATCH_AXIS[type(entry)],
+                  leaf.index_select(CACHE_BATCH_AXIS[type(entry)], rows))
+                 for entry in _entries(self.cache) for leaf in entry]
+        out = model_api.decode_step(self.params, self.cfg, self.cache,
+                                    tokens_t, pos, with_logits=with_logits)
+        for leaf, axis, old in saved:
+            leaf.index_copy_(axis, rows, old)
+        return out
 
     def decode_at(self, tokens_t: torch.Tensor, pos, active: torch.Tensor,
                   *, with_logits: bool = True):

@@ -25,7 +25,7 @@ from repro_torch.core.decomposition import (CollabLM, PaperDecomposition,
                                             paper_forward)
 from repro_torch.core.losses import collab_lm_loss, paper_loss
 from repro_torch.nn.module import resolve_device
-from repro_torch.training.optimizer import AdamW, OptState
+from repro_torch.training.optimizer import AdamW, OptState, keeps_masters
 
 
 def trainable(model: torch.nn.Module) -> List[torch.nn.Parameter]:
@@ -81,7 +81,7 @@ def train_collab_lm(gen: torch.Generator, cfg: ArchConfig,
     model = init_collab_lm(cfg, gen, device)
     params = trainable(model)
     opt = AdamW(lr=lr)
-    opt_state = opt.init(params)
+    opt_state = opt.init(params, masters=keeps_masters(cfg))
     step = make_train_step(cfg, opt, monitor_weight=monitor_weight,
                            safety_weight=safety_weight)
     history = []

@@ -6,14 +6,19 @@ parameters and their state in place, which saves a copy of every
 parameter and moment per step.  State lists line up with the parameter
 list given to ``init``.
 
-Parameters stored narrower than f32 (the port keeps the projection and
-embedding weights in the compute dtype, ``models/base.py``) get an f32
+Where the config's ``param_dtype`` is f32 (``keeps_masters``), a
+parameter stored narrower than f32 (the port keeps the projection and
+embedding weights in the compute dtype, ``models/base.py``) gets an f32
 master copy in the state: the update runs on the master exactly as the
 reference runs it on its f32 parameter, and the stored weight becomes
 ``master.to(storage dtype)``, the value the reference's per-use cast
-gives.  Gradients are cast to f32 before the clip norm, as the
-reference's ``gf`` is.  The update walks the parameters in chunks of at
-most ``CHUNK_ELEMS`` elements, which bounds its f32 temporaries.
+gives.  Where ``param_dtype`` is bf16 the reference's parameter is bf16
+itself, and so is the port's: the update runs as the reference's
+``(p.astype(f32) - lr * step).astype(p.dtype)``, with no master (12
+bytes a trained parameter instead of 16).  Gradients are cast to f32
+before the clip norm, as the reference's ``gf`` is.  The update walks
+the parameters in chunks of at most ``CHUNK_ELEMS`` elements, which
+bounds its f32 temporaries.
 """
 from __future__ import annotations
 
@@ -36,8 +41,16 @@ class OptState:
     master: List[Optional[torch.Tensor]]   # f32 master, or None if f32
 
 
-def _masters(params: Sequence[torch.Tensor]) -> List[Optional[torch.Tensor]]:
-    return [None if p.dtype == torch.float32 else p.detach().float().clone()
+def keeps_masters(cfg) -> bool:
+    """Whether a model of ``cfg`` trains with f32 masters: where its
+    ``param_dtype`` is f32, as the reference's parameters then are."""
+    return cfg.param_dtype == "float32"
+
+
+def _masters(params: Sequence[torch.Tensor],
+             masters: bool) -> List[Optional[torch.Tensor]]:
+    return [p.detach().float().clone()
+            if masters and p.dtype != torch.float32 else None
             for p in params]
 
 
@@ -70,18 +83,21 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack(norms).square().sum() + 1e-12)
 
 
-def _write_back(params, state: OptState, idx) -> None:
-    """Stored weights of the parameters that have masters: master.to(dtype)."""
-    pairs = [(params[i], state.master[i]) for i in idx
-             if state.master[i] is not None]
-    if pairs:
-        torch._foreach_copy_([p.data for p, _ in pairs],
-                             [mw for _, mw in pairs])
-
-
 def _targets(params, state: OptState, idx) -> List[torch.Tensor]:
-    return [state.master[i] if state.master[i] is not None else params[i].data
-            for i in idx]
+    """The f32 tensors the update runs on: the master, the parameter
+    itself where it is f32, else a temporary f32 copy of it."""
+    return [state.master[i] if state.master[i] is not None
+            else params[i].data if params[i].dtype == torch.float32
+            else params[i].data.float() for i in idx]
+
+
+def _write_back(params, idx, targets) -> None:
+    """Stored weights of the parameters narrower than f32: the updated f32
+    value cast to the storage dtype."""
+    pairs = [(params[i].data, w) for i, w in zip(idx, targets)
+             if params[i].dtype != torch.float32]
+    if pairs:
+        torch._foreach_copy_([p for p, _ in pairs], [w for _, w in pairs])
 
 
 @dataclass(frozen=True)
@@ -93,9 +109,12 @@ class AdamW:
     weight_decay: float = 0.0
     clip_norm: float = 1.0
 
-    def init(self, params: Sequence[torch.Tensor]) -> OptState:
+    def init(self, params: Sequence[torch.Tensor], *,
+             masters: bool = True) -> OptState:
+        """``masters``: keep f32 masters of the narrower parameters
+        (``keeps_masters(cfg)``)."""
         return OptState(count=0, m=_zeros(params), v=_zeros(params),
-                        master=_masters(params))
+                        master=_masters(params, masters))
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: OptState,
@@ -134,7 +153,7 @@ class AdamW:
                     torch._foreach_add_(step, w, alpha=self.weight_decay)
                 torch._foreach_add_(w, step, alpha=-lr)
                 del step
-                _write_back(params, state, idx)
+                _write_back(params, idx, w)
             return gnorm
 
 
@@ -143,9 +162,10 @@ class SGD:
     lr: Lr = 1e-2
     momentum: float = 0.9
 
-    def init(self, params: Sequence[torch.Tensor]) -> OptState:
+    def init(self, params: Sequence[torch.Tensor], *,
+             masters: bool = True) -> OptState:
         return OptState(count=0, m=_zeros(params), v=None,
-                        master=_masters(params))
+                        master=_masters(params, masters))
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: OptState,
@@ -159,6 +179,7 @@ class SGD:
             m = [state.m[i] for i in idx]
             torch._foreach_mul_(m, self.momentum)
             torch._foreach_add_(m, [grads[i].float() for i in idx])
-            torch._foreach_add_(_targets(params, state, idx), m, alpha=-lr)
-            _write_back(params, state, idx)
+            w = _targets(params, state, idx)
+            torch._foreach_add_(w, m, alpha=-lr)
+            _write_back(params, idx, w)
         return gnorm

@@ -811,3 +811,107 @@ def test_fleet_failover_on_card(cuda, kind, tmp_path):
     np.testing.assert_array_equal(rep["per_stream"]["bytes_sent"],
                                   r1["comms"]["per_stream"]["bytes_sent"])
     assert rep["failover"]["failovers"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G", [5, 6])
+def test_decode_attention_kernel_groups_5_and_6(cuda, dtype, G, splits):
+    """qwen2.5-32b (40/8 heads) and mixtral (48/8) decode with G = 5 and 6
+    at D = 128: the server shape (B = 8, C = 512) at every split count,
+    over empty, full, wrapped, ragged and short prefixes."""
+    B, Hkv, C = 8, 8, 512
+    gen = torch.Generator(cuda).manual_seed(G)
+    q = _rand((B, Hkv * G, 128), dtype, gen, cuda)
+    k = _rand((B, C, Hkv, 128), dtype, gen, cuda)
+    v = _rand((B, C, Hkv, 128), dtype, gen, cuda)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for pos in (0, C - 1, 2 * C + 3,
+                torch.randint(0, 2 * C, (B,), generator=gen, device=cuda),
+                torch.arange(B, device=cuda) % 7):
+        out = (decode_attention_cuda(q, k, v, pos) if splits is None
+               else decode_attention_split(q, k, v, pos, splits))
+        ref = decode_attention_plain(q, k, v, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_group_5_off_its_head_dim(cuda):
+    q = torch.zeros((1, 10, 64), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention_cuda(q, k, k, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,window", [
+    (1, 512, 4, 0),      # deepseek-v3's MLA prefill widths, causal
+    (2, 333, 2, 0),      # ragged against the 128-row tiles
+    (1, 300, 2, 50),     # window inside a K/V tile
+])
+def test_flash_attention_kernel_keys_192_values_128(cuda, dtype, B, S, H,
+                                                    window):
+    """MLA's prefill: q and k 192 wide (128 nope + 64 rope), v 128 wide;
+    o is 128 wide and the scale 1/sqrt(192)."""
+    gen = torch.Generator(cuda).manual_seed(S)
+    q = _rand((B, S, H, 192), dtype, gen, cuda)
+    k = _rand((B, S, H, 192), dtype, gen, cuda)
+    v = _rand((B, S, H, 128), dtype, gen, cuda)
+    o, lse = flash_attention_cuda(q, k, v, window=window)
+    po, plse = flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert o.shape == (B, S, H, 128)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, plse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradient_keys_192_values_128(cuda):
+    """The Function's backward at Dv != D against autograd through the
+    plain version, f32, rel 1e-4 of the largest entry."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    q, k, v = (_rand(s, torch.float32, gen, cuda)
+               for s in ((2, 200, 4, 192), (2, 200, 4, 192),
+                         (2, 200, 4, 128)))
+    do = _rand((2, 200, 4, 128), torch.float32, gen, cuda)
+    grads = []
+    for fn in (lambda a, b, c: ops.flash_attention(a, b, c),
+               lambda a, b, c: flash_attention_plain(a, b, c)[0]):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves) * do).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_moe_combine_is_bitwise_across_runs(cuda, arch):
+    """Two runs of the MoE dispatch on the same bf16 inputs agree bitwise
+    (the combine gathers, where index_add_ would order adds by atomics),
+    batched and routed per row; and per-row routing equals batched
+    routing at B = 8, where no token can be dropped."""
+    from repro_torch.nn.moe import MoE, moe_apply
+    cfg = registry.get_smoke(arch)
+    moe = MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+              n_shared=cfg.n_shared_experts, dtype=torch.bfloat16,
+              device=cuda)
+    moe.init_(torch.Generator(cuda).manual_seed(0))
+    x = torch.randn((8, 1, cfg.d_model), device=cuda).to(torch.bfloat16)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor)
+    for groups in (1, 8):
+        a, _ = moe_apply(moe, x, groups=groups, **kw)
+        b, _ = moe_apply(moe, x, groups=groups, **kw)
+        assert torch.equal(a, b)
+    assert torch.equal(moe_apply(moe, x, groups=1, **kw)[0],
+                       moe_apply(moe, x, groups=8, **kw)[0])
+    xt = torch.randn((2, 512, cfg.d_model), device=cuda).to(torch.bfloat16)
+    assert torch.equal(moe_apply(moe, xt, **kw)[0],
+                       moe_apply(moe, xt, **kw)[0])

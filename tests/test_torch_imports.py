@@ -28,7 +28,10 @@ import repro_torch.serving.wire, repro_torch.serving.server
 import repro_torch.launch.server, repro_torch.serving.shm
 import repro_torch.serving.fleet, repro_torch.launch.fleet
 import repro_torch.launch.steps, repro_torch.launch.serve
-import repro_torch.launch.train
+import repro_torch.launch.train, repro_torch.nn.moe
+import repro_torch.configs.qwen15_110b, repro_torch.configs.qwen15_32b
+import repro_torch.configs.qwen25_32b, repro_torch.configs.mixtral_8x22b
+import repro_torch.configs.deepseek_v3_671b
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)
