@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths, serving and training on the dense
 granite-8b and on the zamba2-7b hybrid, then on qwen2.5-32b,
-mixtral-8x22b and deepseek-v3, on one NVIDIA GPU and check them.
+mixtral-8x22b and deepseek-v3, then on llama-3.2-vision-11b,
+musicgen-large and xlstm-350m, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -59,7 +60,7 @@ Phases, each printing its own lines:
               every logit is finite; prefill and generate tokens/s, ms per
               step, peak memory.
 8. async   -- MonitorSession in async mode, after the serve phases:
-              granite-8b (36 layers, 32 of the serve cell's 64 steps) under the
+              granite-8b (36 layers, 24 of the serve cell's 64 steps) under the
               stream transport (a CUDA side stream) at max_staleness 0
               and 2, thread at 2, mock_remote at 4 (20-ms simulated round
               trip) and inproc at 0, each against the phase's own sync run
@@ -76,7 +77,7 @@ Phases, each printing its own lines:
               u bitwise, fhat <= u), FixedPolicy bitwise no policy; a traced
               sync and async run (bitwise untraced, the Chrome export
               validates, the span breakdown); the three-rung cascade over
-              two engines.  zamba2-7b (81 layers, 16 of the 64 steps):
+              two engines.  zamba2-7b (81 layers, 8 of the 64 steps):
               one stream run at max_staleness 2 with the same checks.
               Per run: tokens/s, ms/step, stall, overlap ratio, peak
               memory.
@@ -128,11 +129,31 @@ Phases, each printing its own lines:
               128), 3 AdamW steps each at B=2 x S=4096 without masters
               (bf16 param_dtype), finite losses and launch counts.
 
+12. last families -- after 11's serve cells: serve-vlm
+              (llama-3.2-vision-11b FULL: 40 self blocks and 8 cross
+              blocks over 1601 image rows, the gates opened and the image
+              K/V filled with seeded draws in every cache), serve-audio
+              (musicgen-large FULL, 48 layers, (B, 4) tokens a step; then
+              a wire k = 0 run of 16 steps against a CorrectionServer at
+              slots == B in a thread, bitwise the same steps' sync run)
+              and serve-xlstm (xlstm-350m FULL, 24 layers: no attention
+              kernel in the server, the edge's decode and the combine),
+              each as phase 4.  After 11's train cells: train-vlm (one
+              whole super-block, 5 self blocks and the cross block, with
+              (2, 1601, 4096) image rows), train-audio (all 48 layers,
+              B=2 x S=4096 x K=4), 4 steps each, and train-xlstm (all 24
+              layers, 3 steps at S=1024: the eager sLSTM loop), finite
+              losses and launch counts; then the sLSTM loop's device
+              kernels a position (profiler).  The kernels phase adds
+              decode at the cross decode's C = 1601 (pos 1600) and at
+              musicgen's 32/32 heads of 64, every split, and flash at
+              musicgen's (2, 4096, 32, 64).
+
 --profile adds torch.profiler breakdowns of one sync and one scan run, of
 one train step per model, of a train_paper step and of a generate step
 per model, and the CUDA stream ids of the serve kernels in a short async
 stream run per model (the phases run in the order 1-4, 8, 9, 10, 11's
-serve cells, 5, 11's train cells, 6, 7).
+and 12's serve cells, 5, 11's and 12's train cells, 6, 7).
 Then
 one JSON line of the kernels, the
 card's name and power limit, and a last line {"ok": true, "device":
@@ -234,26 +255,43 @@ def time_ms(torch, fn, iters: int):
     return device, (time.perf_counter() - t0) * 1e3 / iters
 
 
+PROFILE_TRIES = 3
+
+
 def device_kernels(torch, fn, calls: int = 5) -> list:
     """The device kernels one call of ``fn`` runs, by name, as the profiler
     sees them over ``calls`` calls (raises if the counts differ).  A
     throwaway profiled call comes first: the tracer has dropped a device
-    event of the first session it traced in a process."""
+    event of the first session it traced in a process, and has dropped
+    one of a later session too (9 of ssd_scan's 10 in five calls, on the
+    H100), so a session whose count is not a multiple of ``calls`` is
+    traced again, up to PROFILE_TRIES sessions in all."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]):
             fn()
             torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    names = [re.search(r"(\w+(?:<[^<>]*>)?)\(", e.name).group(1)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [_kernel_name(e.name) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) % calls == 0 and len(names) > 0:
+            break
+        print(f"[profile] {len(names)} device kernels in {calls} calls: "
+              f"an event dropped, tracing again")
     check(len(names) % calls == 0 and len(names) > 0,
           f"profiler saw {len(names)} device kernels in {calls} calls")
     return names[:len(names) // calls]
+
+
+def _kernel_name(name: str) -> str:
+    """A device event's kernel name without its argument list (a copy or
+    a memset keeps its whole name)."""
+    found = re.search(r"(\w+(?:<[^<>]*>)?)\(", name)
+    return found.group(1) if found else name
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
@@ -992,11 +1030,15 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_serve(torch, dev, args, cfg, twice: bool = False):
+def phase_serve(torch, dev, args, cfg, twice: bool = False,
+                wire_steps: int = 0):
     """MonitorSession sync and scan over ``cfg`` at full width; returns the
     kernels' launch counts in those runs.  ``twice``: a second sync run
     must equal the first bitwise, and an MoE backbone's dispatch is held
-    bitwise across runs (``moe_bitwise``)."""
+    bitwise across runs (``moe_bitwise``).  A VLM's cross gates are
+    opened (``open_gates``).  ``wire_steps``: a wire k = 0 run of that
+    many steps against an in-process server at slots == B, held bitwise
+    to the same steps' sync run (``wire_at_batch``)."""
     from repro_torch import kernels
     from repro_torch.configs.paper_synthetic import SERVING_TRIGGER_RATE
     from repro_torch.core.decomposition import init_collab_lm
@@ -1005,6 +1047,8 @@ def phase_serve(torch, dev, args, cfg, twice: bool = False):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
+    if cfg.family == "vlm":
+        open_gates(torch, model, args.seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.server.parameters())
     width = (cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla
@@ -1014,7 +1058,9 @@ def phase_serve(torch, dev, args, cfg, twice: bool = False):
           f"{cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {n_params / 1e9:.2f} B server parameters; "
           f"random init on the card in {time.perf_counter() - t0:.1f} s")
-    toks = np.random.default_rng(args.seed).integers(0, cfg.vocab_size, (B, S))
+    tail = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    toks = np.random.default_rng(args.seed).integers(0, cfg.vocab_size,
+                                                     (B, S) + tail)
 
     def session(mode, **kw):
         return MonitorSession.open(model, cfg, batch=B, max_len=ML, device=dev,
@@ -1083,6 +1129,11 @@ def phase_serve(torch, dev, args, cfg, twice: bool = False):
           f"{sync['comms']['bytes_baseline']}")
     if cfg.is_moe:
         moe_bitwise(torch, dev, model, cfg, args.seed)
+    if wire_steps:
+        kernels.reset_launch_counts()
+        wire_at_batch(torch, dev, model, cfg, conf, toks[:, :wire_steps])
+        for name, n in kernels.launch_counts().items():
+            counts[name] += n
     if args.profile:
         profile(torch, session, conf, toks[:, :PROFILE_STEPS], cfg.name)
     del model, session
@@ -1105,21 +1156,26 @@ def train_launches_per_step(cfg) -> dict:
         n_super, k, tail = hybrid._layout(cfg)
         return {"flash_attention": n_super * again + edge,
                 "ssd_scan": (n_super * k + tail) * again}
+    if cfg.family == "ssm":  # the xLSTM server runs no attention
+        return {"flash_attention": edge, "ssd_scan": 0}
+    # a VLM's n_layers are its self blocks (the cross attention is tensor
+    # ops); its remat recomputes a whole super-block, the tail per layer
     mtp = 1 if cfg.is_moe and cfg.mtp_depth else 0
     return {"flash_attention": cfg.n_layers * again + edge + mtp,
             "ssd_scan": 0}
 
 
 def phase_train(torch, dev, args, cfg, full_layers: int, lr_witness: bool,
-                steps: int = TRAIN_STEPS, grad_witness: bool = True):
+                steps: int = TRAIN_STEPS, grad_witness: bool = True,
+                seq: int = TRAIN_SEQ):
     """train_collab_lm at full width, ``cfg.n_layers`` of ``full_layers``
-    server layers deep, ``steps`` AdamW steps; returns the kernels' launch
-    counts in that run."""
+    server layers deep, ``steps`` AdamW steps over B = TRAIN_BATCH x
+    ``seq`` tokens; returns the kernels' launch counts in that run."""
     from repro_torch import kernels
     from repro_torch.core.decomposition import collab_forward
     from repro_torch.data.tokens import lm_batches
     from repro_torch.training.loop import to_device, train_collab_lm
-    B, S, n = TRAIN_BATCH, TRAIN_SEQ, steps
+    B, S, n = TRAIN_BATCH, seq, steps
     seen = []
 
     def batches():
@@ -1660,14 +1716,16 @@ POLICY_TARGET = 0.05
 # the side-stream witnesses: the device work queued on the worker's stream
 # before a dispatch, and the profiled steps of the full-width session
 WITNESS_SLEEP_S, WITNESS_STEPS = 1.0, 8
-# zamba2's async run (and its own sync run) serves 16 of the serve cell's
+# zamba2's async run (and its own sync run) serves 8 of the serve cell's
 # 64 steps: a zamba2 sync step costs ~3x granite's, and chip_smoke keeps
-# within its time budget with the serve-wire phase (32 steps before it).
-# granite's async runs serve 32 of the 64 (64 before the fleet-shm phase:
-# on the H100 that phase takes ~150 s, and the granite async runs took
-# ~270 s at 64 steps)
-HYBRID_ASYNC_STEPS = 16
-GRANITE_ASYNC_STEPS = 32
+# within its time budget with the serve-wire phase (32 steps before it,
+# 16 before the last three families' cells).  granite's async runs serve
+# 24 of the 64 (64 before the fleet-shm phase: on the H100 that phase
+# takes ~150 s, and the granite async runs took ~270 s at 64 steps; 32
+# before the last three families' cells, with which the whole script took
+# 945.4 s on the H100)
+HYBRID_ASYNC_STEPS = 8
+GRANITE_ASYNC_STEPS = 24
 
 
 def sleep_cycles(torch, seconds: float) -> int:
@@ -3193,6 +3251,86 @@ def phase_wide_kernels(torch, dev, seed: int, records) -> None:
     del q, k, v, o, lse, do, qt, kt, vt
 
 
+# the last three families' decode shapes: llama-3.2-vision's cross block
+# over its 1601 image rows (G = 4, D = 128, every row valid) and
+# musicgen-large's server (32/32 heads of 64 over the serve cell's cache)
+IMAGE_ROWS = 1601
+LAST_DECODE_SHAPES = (
+    ("llama-3.2-vision cross", 32, 8, 128, IMAGE_ROWS),
+    ("musicgen-large server", 32, 32, 64, MAX_LEN))
+
+
+def phase_last_kernels(torch, dev, seed: int, records) -> None:
+    """decode_attention at the cross decode's shape (C = 1601, off every
+    power of two, at pos = 1600 as the cross block reads it, and at 0 and
+    ragged positions) and at musicgen's G = 1, D = 64, each at every split
+    against its plain version; their times beside the bound and SDPA.
+    Folds the worst error into ``records``.  (flash at musicgen's train
+    shape runs in phase_flash.)"""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (SPLITS,
+                                                      decode_attention_cuda,
+                                                      decode_attention_plain,
+                                                      decode_attention_split,
+                                                      decode_plan)
+    gen = torch.Generator(dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    B = BATCH
+    worst = 0.0
+    for label, Hq, Hkv, D, C in LAST_DECODE_SHAPES:
+        G = Hq // Hkv
+        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(bf16)
+        n_copies = max(2, math.ceil(200e6 / (2 * B * C * Hkv * D * 2)))
+        ks, vs = ([torch.randn((B, C, Hkv, D), generator=gen,
+                               device=dev).to(bf16) for _ in range(n_copies)]
+                  for _ in range(2))
+        for case, pos in ((f"full pos={C - 1}", C - 1), ("pos=0", 0),
+                          ("ragged", torch.randint(0, C, (B,), generator=gen,
+                                                   device=dev)),
+                          ("pos vector C-8..C-1",
+                           C - 1 - torch.arange(B, device=dev))):
+            ref = decode_attention_plain(q, ks[0], vs[0], pos)
+            errs = []
+            for n in SPLITS:
+                out = decode_attention_split(q, ks[0], vs[0], pos, n)
+                torch.cuda.synchronize()
+                errs.append(max_err(out, ref))
+                check(within(out, ref, TOL["bfloat16"]),
+                      f"decode_attention {label} splits={n} {case}")
+            worst = max(worst, *errs)
+            print(f"[kernels] decode_attention {label} B={B} Hq={Hq} "
+                  f"Hkv={Hkv} D={D} C={C} {case}: max_abs_err by split "
+                  f"{dict(zip(SPLITS, (f'{e:.3e}' for e in errs)))} (bf16 "
+                  f"tol {TOL['bfloat16']})")
+        pos = torch.full((B,), C - 1, dtype=torch.int32, device=dev)
+        ms, host = time_ms(torch, lambda i: decode_attention_cuda(
+            q, ks[i % n_copies], vs[i % n_copies], pos), 100)
+        plain, _ = time_ms(torch, lambda i: decode_attention_plain(
+            q, ks[i % n_copies], vs[i % n_copies], pos), 20)
+        sweep = {n: time_ms(torch, lambda i: decode_attention_split(
+            q, ks[i % n_copies], vs[i % n_copies], pos, n), 100)[0] * 1e3
+            for n in SPLITS}
+        lib = None
+        if has_gqa_sdpa(torch):
+            qs = q[:, :, None, :]
+            lib, _ = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qs, ks[i % n_copies].transpose(1, 2),
+                vs[i % n_copies].transpose(1, 2), enable_gqa=G > 1), 100)
+        n_bytes = 2 * q.numel() * 2 + 2 * B * C * Hkv * D * 2 + B * 4
+        bms, by = bound_ms(n_bytes, 4.0 * B * Hq * C * D, BF16_FLOPS)
+        print(f"[kernels] decode_attention time {label} G={G} D={D} C={C} "
+              f"(full cache, cold): kernel {ms * 1e3:.2f} us (host-bound "
+              f"{host * 1e3:.2f} us), plain {plain * 1e3:.2f} us, library "
+              f"{'n/a' if lib is None else f'{lib * 1e3:.2f} us'} (SDPA"
+              f"{' enable_gqa' if G > 1 else ''}), bound {bms * 1e3:.2f} us "
+              f"({by}, {n_bytes / 1e6:.2f} MB); by split count (planned "
+              f"{decode_plan(B, Hkv, C)['splits']}): "
+              + ", ".join(f"{n}: {us:.2f} us" for n, us in sweep.items()))
+        del ks, vs
+    rec = records["decode_attention"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], worst)
+
+
 def moe_bitwise(torch, dev, model, cfg, seed: int) -> None:
     """The first MoE block's dispatch on a random bf16 input at the serve
     batch: two runs agree bitwise, batched and routed per row, and per-row
@@ -3244,6 +3382,234 @@ def phase_families(torch, dev, args) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 12
+# the last three families' train cells: llama-3.2-vision at one whole
+# super-block (5 self blocks + 1 cross block, ~2.2 B trained parameters,
+# ~35 GB at 16 bytes each), musicgen-large at all 48 layers (3.25 B,
+# ~52 GB), xlstm-350m at all 24 (0.2 B)
+VLM_TRAIN_LAYERS = 5
+AUDIO_TRAIN_LAYERS = 48
+XLSTM_TRAIN_STEPS = 3
+# xlstm's sequence: its eager sLSTM loop took 29.1 s a step at S = 4096
+# (48.2 s the first; H100 80GB HBM3, 700 W), past the ~15 s a cell may
+# take, so a quarter of the train cell's S
+XLSTM_TRAIN_SEQ = 1024
+AUDIO_WIRE_STEPS = 16
+
+
+def open_gates(torch, model, seed: int) -> None:
+    """A VLM's cross gates at seeded values in [0.5, 1): the reference
+    initialises them to zero, and tanh(0) = 0 would hide the image path
+    from every output."""
+    gen = torch.Generator(model.server.cross[0].gate.device).manual_seed(seed)
+    for cb in model.server.cross:
+        cb.gate.uniform_(0.5, 1.0, generator=gen)
+
+
+class ImageRows:
+    """Within: every ``init_cache`` of the port fills a VLM's image K/V
+    with seeded normal draws on the card (the same draws in every cache
+    of one shape, so a session's sync and scan runs read the same image);
+    the reference's serving leaves them zero, which with any gate would
+    add nothing."""
+
+    def __init__(self, torch, seed: int):
+        from repro_torch.models import api
+        self.torch, self.seed, self.api = torch, seed, api
+        self.init = api.init_cache
+
+    def fill(self, cfg, batch, seq_len, device=None):
+        cache = self.init(cfg, batch, seq_len, device)
+        if cfg.family == "vlm":
+            leaves = cache["cross"]
+            gen = self.torch.Generator(leaves.k.device).manual_seed(self.seed)
+            for leaf in leaves:
+                leaf.normal_(generator=gen)
+        return cache
+
+    def __enter__(self):
+        self.api.init_cache = self.fill
+        return self
+
+    def __exit__(self, *exc):
+        self.api.init_cache = self.init
+
+
+def wire_at_batch(torch, dev, model, cfg, conf, toks) -> None:
+    """A wire k = 0 session against a CorrectionServer at slots == B in a
+    thread of this process, over a Unix socket (TCP on localhost when the
+    temporary path is too long for one): every backlog crosses the socket
+    as (n, *tail) tokens.  Gates: u, triggers, fhat, server_pos and
+    per-stream bytes bitwise the same steps' sync run; fhat <= u; every
+    request answered over the wire; the server's token tail is the
+    model's."""
+    import dataclasses
+
+    from repro_torch.serving import SessionConfig, TransportSpec
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    from repro_torch.serving.server import CorrectionServer
+    B, S = toks.shape[:2]
+    # the operating point lives in the engine's config (the server's
+    # replay fuses with it too)
+    cfg = cfg.replace(monitor=dataclasses.replace(cfg.monitor, **conf))
+    tmp = short_tmpdir("wt")
+    srv = CorrectionServer(cfg, model, slots=B, max_len=MAX_LEN,
+                           uds=socket_path(tmp), device=dev)
+    stop = threading.Event()
+    th = threading.Thread(target=srv.serve_forever, kwargs=dict(stop=stop),
+                          daemon=True)
+    th.start()
+    try:
+        tail = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+        check(srv.tok_tail == tail, f"server token tail {srv.tok_tail}")
+        sync_eng = CollaborativeEngine(model, cfg, B, MAX_LEN, device=dev)
+        sync = sync_eng.session(SessionConfig(mode="sync")).run(toks)
+        eng = CollaborativeEngine(model, cfg, B, MAX_LEN, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eng.session(SessionConfig(
+                mode="async", max_staleness=0,
+                transport=TransportSpec("wire", address=srv.address))
+        ) as sess:
+            r = sess.run(toks)
+        dt = time.perf_counter() - t0
+    finally:
+        stop.set()
+        th.join(timeout=60)
+        srv.close()
+    for key in ("u", "triggered", "fhat"):
+        check(np.array_equal(r[key], sync[key]),
+              f"{cfg.name} wire k=0 at slots == B bitwise sync: {key}")
+    check(np.array_equal(eng.server_pos, sync_eng.server_pos),
+          f"{cfg.name} wire server_pos == sync")
+    check(np.array_equal(r["comms"]["per_stream"]["bytes_sent"],
+                         sync["comms"]["per_stream"]["bytes_sent"]),
+          f"{cfg.name} wire per-stream bytes == sync")
+    check((r["fhat"] <= r["u"]).all(), f"{cfg.name} wire fhat <= u")
+    w = r["comms"]["wire"]
+    check(w["replies"] == r["comms"]["async"]["requests"] > 0,
+          f"{cfg.name} every wire request answered")
+    print(f"[serve] {cfg.name} wire k=0 at slots == B = {B}, token tail "
+          f"{tail}: {dt / S * 1e3:.2f} ms/step over {S} steps; u, triggers, "
+          f"fhat, server_pos and bytes bitwise the same steps' sync run; "
+          f"{w['replies']} replies, wire tx {w['tx_bytes']} B, rx "
+          f"{w['rx_bytes']} B, RTT mean {w['rtt_mean_s'] * 1e3:.2f} ms")
+
+
+def phase_last_families(torch, dev, args) -> dict:
+    """serve-vlm (llama-3.2-vision-11b FULL: 40 self blocks and 8 cross
+    blocks, gates opened, image K/V filled), serve-audio (musicgen-large
+    FULL, 48 layers, (B, 4) tokens a step, then a wire k = 0 run at
+    slots == B) and serve-xlstm (xlstm-350m FULL, 24 layers): each as
+    phase 4 (sync and scan, the same gates); returns the serve kernels'
+    launches."""
+    from repro_torch.configs import (llama32_vision_11b, musicgen_large,
+                                     xlstm_350m)
+    counts = dict.fromkeys(SERVE_KERNELS, 0)
+    for label, cfg, wire_steps in (
+            ("serve-vlm", llama32_vision_11b.FULL, 0),
+            ("serve-audio", musicgen_large.FULL, AUDIO_WIRE_STEPS),
+            ("serve-xlstm", xlstm_350m.FULL, 0)):
+        t0 = time.perf_counter()
+        print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads"
+              + (f", a cross block every {cfg.cross_attn_every} over "
+                 f"{cfg.n_image_tokens} image rows" if cfg.family == "vlm"
+                 else "")
+              + (f", {cfg.n_codebooks} codebooks" if cfg.family == "audio"
+                 else "")
+              + (f", an sLSTM layer every {cfg.slstm_every}"
+                 if cfg.family == "ssm" else ""))
+        with ImageRows(torch, args.seed):
+            run = phase_serve(torch, dev, args, cfg, wire_steps=wire_steps)
+        if cfg.family == "ssm":
+            check(run["decode_attention"] > 0, "the edge tower's decode ran")
+        for name in SERVE_KERNELS:
+            counts[name] += run[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+SLSTM_PROFILE_SEQ = 256  # positions the profiler counts launches over
+
+
+def slstm_launches(torch, dev, cfg, seq: int) -> None:
+    """The device kernels of one sLSTM layer's scan at the train cell's
+    batch, forward and forward + backward, as the profiler sees them over
+    SLSTM_PROFILE_SEQ positions (the eager loop over time launches the
+    same kernels at every position), and the forward's wall time over
+    ``seq`` positions: the loop is launch-bound."""
+    from repro_torch.nn.xlstm import SLSTM, slstm_scan
+    cell = SLSTM(cfg.d_model, cfg.n_heads, device=dev)
+    cell.init_(torch.Generator(dev).manual_seed(0))
+    cell.requires_grad_(True)
+    gen = torch.Generator(dev).manual_seed(1)
+
+    def x_of(n):
+        return torch.randn((TRAIN_BATCH, n, cfg.d_model), generator=gen,
+                           device=dev).to(torch.bfloat16).requires_grad_(True)
+
+    x = x_of(SLSTM_PROFILE_SEQ)
+
+    def fwd():
+        with torch.no_grad():
+            slstm_scan(cell, x, cfg.n_heads)
+
+    def fwd_bwd():
+        slstm_scan(cell, x, cfg.n_heads).float().sum().backward()
+
+    n_f = len(device_kernels(torch, fwd, calls=1))
+    n_fb = len(device_kernels(torch, fwd_bwd, calls=1))
+    x = x_of(seq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    per, per_fb = n_f / SLSTM_PROFILE_SEQ, n_fb / SLSTM_PROFILE_SEQ
+    print(f"[train-xlstm] one sLSTM layer's scan at B={TRAIN_BATCH}, d "
+          f"{cfg.d_model}: {n_f} device kernels forward over "
+          f"{SLSTM_PROFILE_SEQ} positions ({per:.2f} a position), {n_fb} "
+          f"forward + backward ({per_fb:.2f} a position); at S={seq}: "
+          f"~{per * seq:.0f} forward, ~{per_fb * seq:.0f} forward + "
+          f"backward; forward wall {dt * 1e3:.1f} ms "
+          f"({dt / seq * 1e6:.1f} us a position)")
+
+
+def phase_last_train(torch, dev, args) -> dict:
+    """train-vlm (llama-3.2-vision at full width, one whole super-block,
+    B=2 x S=4096 with (2, 1601, 4096) image rows, 4 steps), train-audio
+    (musicgen-large at full width and depth, B=2 x S=4096 x K=4, 4 steps)
+    and train-xlstm (xlstm-350m FULL, B=2 x S=XLSTM_TRAIN_SEQ, 3 steps),
+    each as phase 5 without its witnesses; then the sLSTM loop's
+    launches."""
+    from repro_torch.configs import (llama32_vision_11b, musicgen_large,
+                                     xlstm_350m)
+    counts = dict.fromkeys(TRAIN_KERNELS, 0)
+    for label, full, layers, steps, seq in (
+            ("train-vlm", llama32_vision_11b.FULL, VLM_TRAIN_LAYERS,
+             TRAIN_STEPS, TRAIN_SEQ),
+            ("train-audio", musicgen_large.FULL, AUDIO_TRAIN_LAYERS,
+             TRAIN_STEPS, TRAIN_SEQ),
+            ("train-xlstm", xlstm_350m.FULL, xlstm_350m.FULL.n_layers,
+             XLSTM_TRAIN_STEPS, XLSTM_TRAIN_SEQ)):
+        t0 = time.perf_counter()
+        cfg = full.replace(n_layers=layers)
+        print(f"[{label}] {cfg.name} at full width, {layers} of "
+              f"{full.n_layers} layers, {steps} steps at S={seq}")
+        run = phase_train(torch, dev, args, cfg, full.n_layers, False,
+                          steps=steps, grad_witness=False, seq=seq)
+        for name in TRAIN_KERNELS:
+            counts[name] += run[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+    slstm_launches(torch, dev, xlstm_350m.FULL, TRAIN_SEQ)
+    return counts
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3267,10 +3633,11 @@ def main(argv=None) -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
 
-    from repro_torch.configs import granite_8b, zamba2_7b
+    from repro_torch.configs import granite_8b, musicgen_large, zamba2_7b
     from repro_torch.core.decomposition import edge_arch
     from repro_torch.nn.ssm import ssm_dims
     full, zfull = granite_8b.FULL, zamba2_7b.FULL
+    mfull = musicgen_large.FULL
     ecfg = edge_arch(full)
     srv = (BATCH, full.n_heads, full.n_kv_heads, full.resolved_head_dim)
     edge = (BATCH, ecfg.n_heads, ecfg.n_kv_heads, ecfg.resolved_head_dim)
@@ -3287,7 +3654,10 @@ def main(argv=None) -> int:
                  ecfg_train.sliding_window),
         # zamba2's shared attention block: 32/32 heads of 112, causal
         "zamba2 shared": (TRAIN_BATCH, TRAIN_SEQ, zfull.n_heads,
-                          zfull.n_kv_heads, zfull.resolved_head_dim, 0)}
+                          zfull.n_kv_heads, zfull.resolved_head_dim, 0),
+        # musicgen-large's server: 32/32 heads of 64, causal
+        "musicgen server": (TRAIN_BATCH, TRAIN_SEQ, mfull.n_heads,
+                            mfull.n_kv_heads, mfull.resolved_head_dim, 0)}
 
     lap = [time.perf_counter()]
 
@@ -3303,6 +3673,7 @@ def main(argv=None) -> int:
                                              flash_shapes)
     records["ssd_scan"] = phase_ssd(torch, dev, args.seed, ssd_shape)
     phase_wide_kernels(torch, dev, args.seed, records)
+    phase_last_kernels(torch, dev, args.seed, records)
     gc.collect()
     torch.cuda.empty_cache()
     took("kernels")
@@ -3342,6 +3713,10 @@ def main(argv=None) -> int:
     for name in SERVE_KERNELS:
         counts[name] += run[name]
     took("serve-qwen, serve-moe, serve-mla")
+    run = phase_last_families(torch, dev, args)
+    for name in SERVE_KERNELS:
+        counts[name] += run[name]
+    took("serve-vlm, serve-audio, serve-xlstm")
     for cfg, n_full, lr_witness in (
             (full.replace(n_layers=TRAIN_LAYERS), full.n_layers, True),
             (zfull.replace(n_layers=HYBRID_TRAIN_LAYERS), zfull.n_layers,
@@ -3367,6 +3742,10 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     took("train-moe, train-mla")
+    run = phase_last_train(torch, dev, args)
+    for name in TRAIN_KERNELS:
+        counts[name] += run[name]
+    took("train-vlm, train-audio, train-xlstm")
     phase_paper(torch, dev, args.seed, args.profile)
     took("paper")
     for cfg in (full, zfull):

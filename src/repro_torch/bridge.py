@@ -70,6 +70,12 @@ def _load(module: nn.Module, tree: Mapping[str, Any], path: str,
 
 
 def _load_stacked(layers: nn.ModuleList, tree, where: str, put) -> None:
+    if len(layers) == 0:  # zero layers: zero-length leaves of its shapes
+        want, got = _shapes(layers), _map(tree, lambda a: np.shape(a))
+        if got != want:
+            raise ValueError(f"{where}: an empty stack has leaves {want}, "
+                             f"the tree {got}")
+        return
     for li, layer in enumerate(layers):
         sub = _index(tree, li, len(layers), where)
         if isinstance(layer, nn.ModuleList):  # a second stacked axis
@@ -158,10 +164,29 @@ def _dump(module: nn.Module, leaf) -> Dict[str, Any]:
 
 def _dump_stacked(layers: nn.ModuleList, leaf):
     """Layers stacked on axis 0 (a ``ModuleList`` of ``ModuleList``s on
-    two axes)."""
+    two axes).  A stack of no layers gives f32 leaves of length 0 in the
+    reference's shapes."""
+    if len(layers) == 0:
+        return _map(_shapes(layers), lambda shape: np.zeros(shape,
+                                                            np.float32))
     return _stack([_dump_stacked(layer, leaf)
                    if isinstance(layer, nn.ModuleList) else _dump(layer, leaf)
                    for layer in layers])
+
+
+def _map(tree, fn):
+    if isinstance(tree, Mapping):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _shapes(layers: nn.ModuleList):
+    """The leaf shapes of a stack, from its layers or, for a stack of none
+    (a ``LayerStack``), from a layer it builds on the meta device."""
+    one = layers[0] if len(layers) else layers.make("meta")
+    sub = _shapes(one) if isinstance(one, nn.ModuleList) \
+        else _dump(one, lambda p: tuple(p.shape))
+    return _map(sub, lambda shape: (len(layers),) + shape)
 
 
 def _stack(layers):

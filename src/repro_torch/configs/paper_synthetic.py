@@ -3,8 +3,7 @@ cos(ix), x ~ U[-3,3], server net V = FC(1,16,32,64,100,1), on-device net U
 truncated from V's penultimate layer (Eq. 8); and its LM analogue, a
 1-layer d64 server tower plus a matching edge monitor, the serving
 workload of the collaborative engine, with its operating points.  A copy
-of the JAX package's ``configs/paper_synthetic.py`` without the async
-and wire operating points, which belong to paths not ported yet.
+of the JAX package's ``configs/paper_synthetic.py``.
 """
 from dataclasses import dataclass, field
 from typing import Tuple
@@ -47,6 +46,13 @@ SERVING = ArchConfig(
                           n_features=16),
 )
 
-# per-stream trigger rate in the paper's Fig-4 operating region (the
-# threshold is calibrated to this rate from a probe u-trace)
-SERVING_TRIGGER_RATE = 0.15
+# serving operating points: the per-stream trigger rate in the paper's
+# Fig-4 operating region (the threshold is calibrated to this rate from a
+# probe u-trace), the simulated server round trip of the mock_remote
+# transport, and the pipeline depth that hides it
+SERVING_TRIGGER_RATE = 0.15   # paper Fig 4: trigger rates ~0.05-0.3
+SERVING_LATENCY_S = 0.05      # mock-remote RTT (cellular-class uplink)
+SERVING_MAX_STALENESS = 16    # merge window: RTT / edge-step-time, rounded up
+# the wire transport's operating point: super-batch rows a correction
+# server leases to client sessions (one server process's capacity)
+SERVING_WIRE_SLOTS = 64

@@ -173,15 +173,13 @@ def paper_forward(p: PaperDecomposition, x: torch.Tensor, cfg, *,
 
 def edge_arch(cfg: ArchConfig) -> ArchConfig:
     """The edge tower's config, derived from ``cfg.monitor``: a small dense
-    decoder with a 1k-token ring cache (the edge memory budget), for a
-    dense, MoE or hybrid server, as in the reference."""
+    decoder with a 1k-token ring cache (the edge memory budget), as in the
+    reference; an audio server's edge keeps the codebook embeddings, so
+    it reads the same (B, S, K) token stream."""
     m = cfg.monitor
-    if cfg.family not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(
-            f"edge tower for family {cfg.family!r} is not ported yet: see "
-            "ROADMAP.md queue 1, item 7 (other families)")
+    fam = "audio" if cfg.family == "audio" else "dense"
     return ArchConfig(
-        name=f"{cfg.name}-edge", family="dense", citation="edge tower (paper U)",
+        name=f"{cfg.name}-edge", family=fam, citation="edge tower (paper U)",
         n_layers=m.n_layers, d_model=m.d_model, n_heads=m.n_heads,
         n_kv_heads=m.n_heads, d_ff=m.d_ff, vocab_size=cfg.vocab_size,
         n_codebooks=cfg.n_codebooks, tie_embeddings=True,

@@ -25,7 +25,9 @@ def paper_loss(out: Dict[str, torch.Tensor], f: torch.Tensor, *,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross entropy over all positions; logits (B, S, V)."""
+    """Mean next-token cross entropy over all positions; logits (B, S, V)
+    with labels (B, S), or the audio family's (B, S, K, V) with (B, S,
+    K): the mean runs over every codebook too, as the reference's."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     return -torch.mean(ll)

@@ -35,15 +35,23 @@ def markov_stream(rng: np.random.Generator, batch: int, seq: int, vocab: int,
 
 def lm_batches(seed: int, cfg: ArchConfig, batch: int,
                seq: int) -> Iterator[Dict[str, np.ndarray]]:
-    """Infinite iterator of {tokens, labels, monitor_target} (B, S) numpy
-    arrays, for the token families the port runs."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} batches are not ported yet: see "
-            "ROADMAP.md queue 1, item 7 (other families)")
+    """Infinite iterator of {tokens, labels, monitor_target[,
+    image_embeds]} numpy arrays: tokens and labels (B, S), or (B, S, K)
+    Zipf draws for the audio family (its monitor target reads codebook
+    0); a VLM's batch adds stub image patch embeddings (B, n_image_tokens,
+    d_model) f32."""
     rng = np.random.default_rng(seed)
     while True:
-        toks = markov_stream(rng, batch, seq + 1, cfg.vocab_size)
-        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-               "monitor_target": monitoring_target(toks[:, :-1],
-                                                   cfg.vocab_size)}
+        if cfg.family == "audio":
+            toks = zipf_tokens(rng, (batch, seq + 1, cfg.n_codebooks),
+                               cfg.vocab_size)
+            mon_src = toks[:, :-1, 0]
+        else:
+            toks = markov_stream(rng, batch, seq + 1, cfg.vocab_size)
+            mon_src = toks[:, :-1]
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "monitor_target": monitoring_target(mon_src, cfg.vocab_size)}
+        if cfg.family == "vlm":
+            b["image_embeds"] = rng.standard_normal(
+                (batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+        yield b

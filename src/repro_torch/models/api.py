@@ -1,23 +1,22 @@
 """Uniform backbone API (``models/api.py``): the rest of the port talks to
-these functions only.  The dense, moe and hybrid families are ported."""
+these functions only.  Every family of the reference is here: the
+transformer backbone's dense, moe, vlm and audio, the hybrid, and the
+xLSTM (``ssm``)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, transformer, xlstm_model
 
-_FAMILY = {"dense": (transformer, transformer.TransformerLM),
-           "moe": (transformer, transformer.TransformerLM),
-           "hybrid": (hybrid, hybrid.HybridLM)}
+_TRANSFORMER = (transformer, transformer.TransformerLM)
+_FAMILY = {"dense": _TRANSFORMER, "moe": _TRANSFORMER, "vlm": _TRANSFORMER,
+           "audio": _TRANSFORMER, "hybrid": (hybrid, hybrid.HybridLM),
+           "ssm": (xlstm_model, xlstm_model.XLSTMLM)}
 
 
 def _family(cfg: ArchConfig):
-    if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: see ROADMAP.md "
-            "queue 1, item 7 (other families)")
     return _FAMILY[cfg.family]
 
 

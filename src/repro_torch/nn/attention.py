@@ -1,5 +1,6 @@
 """GQA attention: prefill over a whole sequence (``nn/attention.py:184``)
-and single-token decode (``nn/attention.py:136-226``); and DeepSeek's
+and single-token decode (``nn/attention.py:136-226``); llama-3.2-vision's
+cross attention over image rows (``nn/attention.py:229``); and DeepSeek's
 multi-head latent attention, MLA (``nn/attention.py:249-342``).
 
 Prefill is ``kernels.ops.flash_attention``: the plain version of the
@@ -37,6 +38,13 @@ from repro_torch.nn.rotary import rotate
 
 class KVCache(NamedTuple):
     k: torch.Tensor  # (L, B, C, Hkv, D) in a model cache
+    v: torch.Tensor
+
+
+class CrossKV(NamedTuple):
+    """The image rows' keys and values of llama-3.2-vision's cross blocks,
+    computed once per image; the engine finds their batch axis by type."""
+    k: torch.Tensor  # (n_super, B, n_image_tokens, Hkv, D)
     v: torch.Tensor
 
 
@@ -107,6 +115,60 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
     write_rows(cache_k, slot, k.to(cache_k.dtype), active)
     write_rows(cache_v, slot, v.to(cache_v.dtype), active)
     o = ops.decode_attention(q, cache_k, cache_v, pos)
+    return linear(p.wo, o.reshape(B, n_heads * head_dim),
+                  compute_dtype=compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (llama-3.2-vision's image layers): no causal mask, no rope
+# ---------------------------------------------------------------------------
+
+CROSS_Q_BLOCK = 1024  # query rows a score block holds (the reference's)
+
+
+def cross_attn(p: GQA, x: torch.Tensor, kv_feats: torch.Tensor, *,
+               n_heads: int, n_kv: int, head_dim: int,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x: (B, S, d_model) queries over kv_feats: (B, T, d_model) image
+    rows, every query row over every image row (ref :229).  The reference
+    runs this through ``chunked_attention(causal=False)``, outside any
+    Pallas kernel, so here too it is tensor ops, a block of query rows at
+    a time: scores of compute-dtype operands summed in f32, an f32
+    softmax, probabilities rounded to v's dtype before the PV product,
+    output in q's dtype.  Autograd differentiates it."""
+    B, S, _ = x.shape
+    T = kv_feats.shape[1]
+    G = n_heads // n_kv
+    q = linear(p.wq, x, compute_dtype=compute_dtype).reshape(
+        B, S, n_kv, G, head_dim)
+    k = linear(p.wk, kv_feats, compute_dtype=compute_dtype).reshape(
+        B, T, n_kv, head_dim)
+    v = linear(p.wv, kv_feats, compute_dtype=compute_dtype).reshape(
+        B, T, n_kv, head_dim)
+    kh = k.float().permute(0, 2, 3, 1)[:, :, None]     # (B, Hkv, 1, D, T)
+    vh = v.float().permute(0, 2, 1, 3)[:, :, None]     # (B, Hkv, 1, T, D)
+    scale = 1.0 / math.sqrt(head_dim)
+    blocks = []
+    for q0 in range(0, S, CROSS_Q_BLOCK):
+        qb = q[:, q0:q0 + CROSS_Q_BLOCK].float().permute(0, 2, 3, 1, 4)
+        s = torch.matmul(qb, kh) * scale                # (B, Hkv, G, s, T)
+        prob = torch.softmax(s, dim=-1).to(v.dtype).float()
+        blocks.append(torch.matmul(prob, vh).to(q.dtype))
+    o = torch.cat(blocks, dim=3).permute(0, 3, 1, 2, 4)  # (B, S, Hkv, G, D)
+    return linear(p.wo, o.reshape(B, S, n_heads * head_dim),
+                  compute_dtype=compute_dtype)
+
+
+def cross_attn_decode(p: GQA, x: torch.Tensor, k_img: torch.Tensor,
+                      v_img: torch.Tensor, *, n_heads: int, head_dim: int,
+                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """One token per row against precomputed image K/V (B, T, Hkv, D):
+    the decode attention kernel at position T - 1, so every image row is
+    valid (ref ``models/transformer.py:298``).  Returns (B, d_model)."""
+    B = x.shape[0]
+    q = linear(p.wq, x, compute_dtype=compute_dtype).reshape(B, n_heads,
+                                                              head_dim)
+    o = ops.decode_attention(q, k_img, v_img, k_img.shape[1] - 1)
     return linear(p.wo, o.reshape(B, n_heads * head_dim),
                   compute_dtype=compute_dtype)
 

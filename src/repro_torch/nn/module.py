@@ -12,7 +12,7 @@ gradients, so serving builds no autograd graph; the trainer calls
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -53,6 +53,19 @@ class Linear(nn.Module):
         normal_(self.w, gen, sd)
         if self.b is not None:
             self.b.zero_()
+
+
+class LayerStack(nn.ModuleList):
+    """The layers of one of the reference's stacked leaves (its layers
+    stacked on a leading axis): a ``ModuleList`` that can also build a
+    layer of its own, ``make(device)``, so that an empty stack still knows
+    its leaves' shapes (``repro_torch.bridge`` carries it as zero-length
+    leaves, as the reference stacks zero layers)."""
+
+    def __init__(self, make: Callable[[object], nn.Module], n: int,
+                 device=None):
+        super().__init__(make(device) for _ in range(n))
+        self.make = make
 
 
 def normal_(t: torch.Tensor, gen: torch.Generator, stddev: float) -> None:

@@ -8,8 +8,11 @@ packages' traces read alike:
 
     edge track    edge.decode, edge.trigger, edge.dispatch, edge.merge,
                   edge.catchup (sync), edge.stall, scan.run
-    wire, server  the reference's socket transport fills these; the port
-                  has no wire transport yet (ROADMAP queue 1, item 5)
+    wire, server  the wire and shm transports fill these on the client
+                  (wire.encode, wire.request, wire.socket or shm.ring,
+                  server.catchup, server.queue from the reply's timing)
+                  and a correction server with a tracer its own
+                  (server.queue, server.replay; ``serving/server.py``)
 
 Spans are read on the HOST clock.  On a CUDA engine a span that ends
 before the host waits for the card measures the enqueue, not the device

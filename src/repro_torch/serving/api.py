@@ -501,6 +501,7 @@ class MonitorSession:
     def arm_recompile_guard(self, *, track_global: bool = True,
                             warm_only: bool = False):
         """The reference's guard over its jitted paths.  The port runs
-        eagerly; its counterpart is a graph-capture guard once the serve
-        step is captured in CUDA graphs (ROADMAP queue 2)."""
+        eagerly; its counterpart is a graph-capture guard over the serve
+        step captured in CUDA graphs, which comes with the analysis port
+        (ROADMAP queue 1, item 8)."""
         raise _later("the recompile guard", "8 (mesh + analysis)")

@@ -92,8 +92,9 @@ TIMINGS_KEPT = 4096
 class Backlog(NamedTuple):
     """One request's catch-up inputs on the engine's device, built on the
     dispatching stream at dispatch.  R rounds (the longest backlog), B
-    rows: ``tokens`` (R, B) int64, ``pos`` (R, B) int32, ``active`` (R, B)
-    bool (row b replays round r), ``triggered`` (B,) bool."""
+    rows: ``tokens`` (R, B) int64 ((R, B, K) for audio), ``pos`` (R, B)
+    int32, ``active`` (R, B) bool (row b replays round r), ``triggered``
+    (B,) bool."""
 
     tokens: torch.Tensor
     pos: torch.Tensor
@@ -533,8 +534,8 @@ class SocketWorker(ServerWorker):
     _socket_span = "wire.socket"
 
     def __init__(self, cache, *, address: str, batch: int, max_len: int,
-                 coalesce: bool = True, comms=None, metrics=None,
-                 tracer=None):
+                 tok_tail: Tuple[int, ...] = (), coalesce: bool = True,
+                 comms=None, metrics=None, tracer=None):
         from repro_torch.serving import wire
 
         self._wire = wire
@@ -545,8 +546,10 @@ class SocketWorker(ServerWorker):
         self._metrics = metrics
         self._tracer = tracer
         self._batch = int(batch)
-        # no token tail: the port has no audio family
-        self._hello = wire.Hello(batch, max_len, (), coalesce, "edge")
+        # a token's tail: (K,) for the audio family's codebooks, else ()
+        self._tok_tail = tuple(tok_tail)
+        self._hello = wire.Hello(batch, max_len, self._tok_tail, coalesce,
+                                 "edge")
         self._fleet = address.startswith(self._FLEET_PREFIX)
         self._target = (address[len(self._FLEET_PREFIX):] if self._fleet
                         else address)
@@ -559,7 +562,8 @@ class SocketWorker(ServerWorker):
         self._acked_pos = np.zeros(self._batch, np.int32)
         # the tokens every row has shipped, at their positions: what a
         # failover replays
-        self._history = np.zeros((self._batch, int(max_len)), np.int32)
+        self._history = np.zeros((self._batch, int(max_len))
+                                 + self._tok_tail, np.int32)
         self._must_move = False      # GOAWAY received: move when empty
         self._failing_over = False   # routes _tx/_rx to the failover bucket
         self._internal_next = 1 << 62  # clear of the Dispatcher's req_ids
@@ -820,7 +824,7 @@ class SocketWorker(ServerWorker):
         pos = np.asarray(req.server_pos, np.int32)
         lengths = np.where(trig, t + 1 - pos, 0)
         t_enc = time.monotonic()
-        # the backlog's (R, B) tokens to the host once; each triggered
+        # the backlog's (R, B[, K]) tokens to the host once; each triggered
         # stream's backlog, concatenated in stream order, and into the
         # history a failover replays
         toks = req.backlog.tokens.cpu().numpy()
@@ -828,7 +832,7 @@ class SocketWorker(ServerWorker):
         for i in rows:
             self._history[i, pos[i]:t + 1] = toks[:lengths[i], i]
         tokens = (np.concatenate([toks[:lengths[i], i] for i in rows])
-                  if len(rows) else np.zeros(0, np.int32))
+                  if len(rows) else np.zeros((0,) + self._tok_tail, np.int32))
         buf = self._wire.encode_request_arrays(self._wire.WireRequest(
             req.req_id, t, trig, pos, req.u_host, tokens))
         t_send = time.monotonic()

@@ -88,8 +88,10 @@ class CollaborativeEngine:
         self.edge_pos = np.zeros(batch, np.int64)
         self.active = np.ones(batch, bool)
         self.t = 0  # session step counter
-        self._history = torch.zeros((batch, max_len), dtype=torch.int64,
-                                    device=self.device)
+        # a token is one id, or the audio family's K codebook ids
+        self.tok_tail = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+        self._history = torch.zeros((batch, max_len) + self.tok_tail,
+                                    dtype=torch.int64, device=self.device)
         self.comms = CommsMeter(bytes_per_request=TOKEN_BYTES, n_streams=batch)
         # per-stream trigger points: stream i triggers when u_i > _thr_eff[i]
         # (a policy rewrites the vector between steps; serving/policy.py)
@@ -130,12 +132,13 @@ class CollaborativeEngine:
     # -- online (lazy, per-element) path -------------------------------------
     def _record_at(self, tokens_t: torch.Tensor, pos: np.ndarray,
                    active: np.ndarray) -> None:
-        """history[i, pos[i]] = tokens_t[i] where active; other slots keep
-        their history bit-for-bit."""
+        """history[i, pos[i]] = tokens_t[i] (an id, or (K,) ids) where
+        active; other slots keep their history bit-for-bit."""
         rows = torch.arange(self.batch, device=self.device)
         idx = torch.as_tensor(np.clip(pos, 0, self.max_len - 1),
                               device=self.device)
-        act = torch.as_tensor(active, device=self.device)
+        act = torch.as_tensor(active, device=self.device).reshape(
+            (-1,) + (1,) * len(self.tok_tail))
         self._history[rows, idx] = torch.where(act, tokens_t,
                                                self._history[rows, idx])
 
@@ -148,9 +151,9 @@ class CollaborativeEngine:
         scalar or (B,) end positions.  The tokens are gathered now, so a
         worker never reads the history, which later steps overwrite.
         ``history``: None reads the engine's own (on the device); the
-        correction server passes its host mirror, (B, max_len) int32,
+        correction server passes its host mirror, (B, max_len[, K]) int32,
         whose tokens are gathered on the host and uploaded as one (R, B)
-        block."""
+        block (R, B, K for audio)."""
         B = self.batch
         t_vec = np.broadcast_to(np.asarray(t, np.int64), (B,))
         n_rounds = int(np.max(np.where(triggered, t_vec + 1 - server_pos, 0)))
@@ -159,8 +162,9 @@ class CollaborativeEngine:
         act = triggered[None, :] & (pos <= t_vec[None, :])
         clipped = np.clip(pos, 0, self.max_len - 1)
         if history is None:
-            idx = torch.as_tensor(clipped.T, device=self.device)
-            tokens = torch.gather(self._history, 1, idx).T           # (R, B)
+            idx = torch.as_tensor(clipped, device=self.device)
+            rows = torch.arange(B, device=self.device)
+            tokens = self._history[rows[None, :], idx]        # (R, B[, K])
         else:
             tokens = torch.as_tensor(
                 history[np.arange(B)[None, :], clipped].astype(np.int64),
@@ -324,7 +328,8 @@ class CollaborativeEngine:
             wire_opts = None
             if transport in ("wire", "shm") and address is not None:
                 wire_opts = dict(address=address, batch=self.batch,
-                                 max_len=self.max_len, coalesce=wire_coalesce,
+                                 max_len=self.max_len, tok_tail=self.tok_tail,
+                                 coalesce=wire_coalesce,
                                  comms=self.comms, metrics=self.metrics,
                                  tracer=self._tracer)
             worker = async_rpc.make_worker(transport, self._catchup_apply,
@@ -487,7 +492,7 @@ class CollaborativeEngine:
         (u, fhat, triggered, served)."""
         ecfg = deco.edge_arch(self.cfg)
         cfg, m = self.cfg, self.m
-        B, S = tokens.shape
+        B, S = tokens.shape[:2]
         edge_cache = model_api.init_cache(ecfg, B, self.max_len, self.device)
         server_cache = model_api.init_cache(cfg, B, self.max_len, self.device)
 
@@ -515,7 +520,7 @@ class CollaborativeEngine:
         trigger, so a stream ships (index of its last trigger + 1) tokens."""
         tokens = torch.as_tensor(np.asarray(token_stream),
                                  device=self.device).long()
-        B, S = tokens.shape
+        B, S = tokens.shape[:2]
         if S > self.max_len:
             raise ValueError(f"stream longer than max_len={self.max_len}")
         tr = self._tracer

@@ -25,16 +25,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api as model_api
-from repro_torch.nn.attention import KVCache, MLACache
+from repro_torch.nn.attention import CrossKV, KVCache, MLACache
 from repro_torch.nn.module import resolve_device
 from repro_torch.nn.ssm import SSMCache
+from repro_torch.nn.xlstm import MLSTMState, SLSTMState
 
 # batch axis of every cache type, written out where the reference finds
 # it with an eval_shape probe (cache_batch_axes): KVCache leaves are
-# (layers, B, C, Hkv, D); MLACache leaves (layers, B, C, width); SSMCache
-# leaves (mamba layers, B, ...).  An entry may be None (an MoE backbone
-# with no dense layers).
-CACHE_BATCH_AXIS = {KVCache: 1, MLACache: 1, SSMCache: 1}
+# (layers, B, C, Hkv, D); MLACache leaves (layers, B, C, width); CrossKV
+# leaves (cross blocks, B, image rows, Hkv, D); SSMCache leaves (mamba
+# layers, B, ...); MLSTMState and SLSTMState leaves (layers, B, ...).  An
+# entry may be None (an MoE backbone with no dense layers).
+CACHE_BATCH_AXIS = {KVCache: 1, MLACache: 1, CrossKV: 1, SSMCache: 1,
+                    MLSTMState: 1, SLSTMState: 1}
 
 
 def _entries(cache):
@@ -102,9 +105,9 @@ class ServeEngine:
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Feed the prompt ``tokens`` (B, S0) one decode step a position
-        from ``self.pos`` on, advancing it; returns the last position's
-        logits (B, V)."""
+        """Feed the prompt ``tokens`` (B, S0), or (B, S0, K) for audio,
+        one decode step a position from ``self.pos`` on, advancing it;
+        returns the last position's logits (B, V), or (B, K, V)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         logits = None
         for t in range(tokens.shape[1]):
@@ -113,9 +116,10 @@ class ServeEngine:
 
     def sample(self, logits: torch.Tensor,
                temperature: float = 0.0) -> torch.Tensor:
-        """(B, V) logits -> (B,) int32 tokens: the argmax at temperature
-        <= 0, else a categorical draw from softmax(logits / temperature)
-        by the Gumbel-max rule, with noise from ``self.gen``."""
+        """(B, V) logits -> (B,) int32 tokens, or (B, K, V) -> (B, K): the
+        argmax at temperature <= 0, else a categorical draw from
+        softmax(logits / temperature) by the Gumbel-max rule, with noise
+        from ``self.gen``."""
         if temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         e = torch.empty_like(logits, dtype=torch.float32).exponential_(
@@ -126,10 +130,11 @@ class ServeEngine:
     @torch.no_grad()
     def generate(self, prompt: torch.Tensor, n_new: int,
                  temperature: float = 0.0, *, return_logits: bool = False):
-        """prompt (B, S0) -> generated tokens (B, n_new): the prefill, then
-        exactly ``n_new`` decode steps (the last one's logits go unused,
-        as in the reference).  With ``return_logits`` also the (B, n_new,
-        V) logits each token was drawn from."""
+        """prompt (B, S0) -> generated tokens (B, n_new), or (B, S0, K) ->
+        (B, n_new, K): the prefill, then exactly ``n_new`` decode steps
+        (the last one's logits go unused, as in the reference).  With
+        ``return_logits`` also the (B, n_new, V) (or (B, n_new, K, V))
+        logits each token was drawn from."""
         logits = self.prefill(prompt)
         toks, seen = [], []
         tok = self.sample(logits, temperature)

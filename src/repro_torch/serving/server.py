@@ -131,10 +131,13 @@ class CorrectionServer:
         self._eng = CollaborativeEngine(params, cfg, self.slots, self.max_len,
                                         device=self.device)
         self._cache = self._eng.server.cache
-        self.tok_tail: Tuple[int, ...] = ()  # no audio family in the port
+        # a token's tail: (K,) for the audio family's codebooks, else ();
+        # a client's HELLO must declare the same
+        self.tok_tail: Tuple[int, ...] = self._eng.tok_tail
         # the token-history mirror, on the host: requests carry only
         # backlog slices, and the replay needs them at absolute positions
-        self._history = np.zeros((self.slots, self.max_len), np.int32)
+        self._history = np.zeros((self.slots, self.max_len) + self.tok_tail,
+                                 np.int32)
         # the replay thread's intra-op thread count is the constructing
         # thread's (a reduction's rounding may depend on its split)
         self._n_threads = torch.get_num_threads()

@@ -36,9 +36,8 @@ its sessions to move); v4 an optional server-timing payload on REPLY
 (``queue_s``, request arrival -> replay start, a duration, so no clock
 sync is needed); v5 the same-host shared-memory negotiation (an optional
 ``u8 shm`` byte on HELLO, an optional arena offer on HELLO_ACK, and
-SHM_OPEN).  The port's server and client speak no shm yet (ROADMAP queue
-1, item 6), but the codec carries every frame, and ``RingWriter`` /
-``RingReader`` are here for that transport.
+SHM_OPEN).  The port's server and client speak every version, shm
+included (``serving/shm.py``, whose rings carry these frames).
 
 Compatibility: the decoder accepts any version in ``[MIN_VERSION,
 VERSION]``: a v3 REPLY has no timing payload (``queue_s`` reads -1,

@@ -1,8 +1,16 @@
 """The cases of the family parity tests (tests/test_torch_families.py for
 the dense Qwen archs, tests/test_torch_moe.py for mixtral-8x22b and
-deepseek-v3): each takes an arch name and holds the port to the JAX
-reference on the CPU at SMOKE size in f32, the same weights carried
-across by the bridge."""
+deepseek-v3, tests/test_torch_vlm.py, tests/test_torch_audio.py and
+tests/test_torch_xlstm.py for the last three families): each takes an
+arch name and holds the port to the JAX reference on the CPU at SMOKE
+size in f32, the same weights carried across by the bridge.
+
+A VLM's cross blocks would add nothing with the reference's zero gates
+(tanh(0) = 0), nor its decode with zero image K/V, so ``pair`` opens the
+gates in the reference's tree before the bridge carries it, and
+``filled_cross`` has both packages' ``init_cache`` fill the image K/V
+with the same seeded normal draws."""
+import contextlib
 from unittest import mock
 
 import jax
@@ -41,6 +49,16 @@ from _torch_parity import (TOL_E2E, gap_threshold, port_train_steps,
 
 TIE = 1e-6  # routing near-tie band on router probabilities
 _PAIRS = {}
+# arch variants: name -> (registry arch, SMOKE overrides)
+VARIANTS = {
+    # a VLM whose layers leave a tail after the super-blocks
+    "llama-3.2-vision-11b+tail": ("llama-3.2-vision-11b", dict(n_layers=3)),
+    # an MoE backbone with no MoE layers: an empty blocks_moe stack
+    "deepseek-v3-671b+dense1": ("deepseek-v3-671b",
+                                dict(n_layers=1, first_dense_layers=1,
+                                     mtp_depth=0)),
+}
+GATE_SEED, CROSS_SEED = 7, 11
 
 
 def _np(x):
@@ -48,16 +66,104 @@ def _np(x):
         else np.asarray(x, np.float32)
 
 
+def smoke_configs(arch):
+    """(JAX cfg, port cfg) of ``arch``'s SMOKE, or of a ``VARIANTS`` name."""
+    base, over = VARIANTS.get(arch, (arch, {}))
+    return (jreg.get_smoke(base).replace(**over),
+            treg.get_smoke(base).replace(**over))
+
+
+def open_gates(params):
+    """A VLM tree with its cross gates at seeded values in [0.5, 1) (the
+    reference initialises them to zero)."""
+    gate = params["server"]["cross"]["gate"]
+    vals = np.random.default_rng(GATE_SEED).uniform(
+        0.5, 1.0, gate.shape).astype(np.float32)
+    server = dict(params["server"], cross=dict(params["server"]["cross"],
+                                               gate=jnp.asarray(vals)))
+    return dict(params, server=server)
+
+
 def pair(arch):
-    """(JAX cfg, port cfg, reference params (drawn once per process), a
-    fresh port model on the CPU with the same weights)."""
-    jcfg, tcfg = jreg.get_smoke(arch), treg.get_smoke(arch)
+    """(JAX cfg, port cfg, reference params (drawn once per process; a
+    VLM's with its gates opened), a fresh port model on the CPU with the
+    same weights)."""
+    jcfg, tcfg = smoke_configs(arch)
     if arch not in _PAIRS:
-        _PAIRS[arch] = jax.jit(lambda k: jdeco.init_collab_lm(k, jcfg))(
+        params = jax.jit(lambda k: jdeco.init_collab_lm(k, jcfg))(
             jax.random.PRNGKey(0))
+        _PAIRS[arch] = open_gates(params) if jcfg.family == "vlm" \
+            else params
     params = _PAIRS[arch]
     return jcfg, tcfg, params, bridge.collab_from_numpy(
         jax.tree.map(np.asarray, params), tcfg, "cpu")
+
+
+def cross_rows(shape):
+    """The image keys and values a filled VLM cache holds: seeded normal
+    draws of ``shape`` (n_super, B, n_image_tokens, Hkv, D), f32."""
+    rng = np.random.default_rng(CROSS_SEED)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for _ in range(2))
+
+
+@contextlib.contextmanager
+def filled_cross():
+    """Within: both packages' ``init_cache`` (the engines', the scans' and
+    the tests' own) return a VLM cache whose image K/V hold
+    ``cross_rows``; other families' caches are as ever."""
+    j_init, t_init = japi.init_cache, tapi.init_cache
+
+    def jfill(cfg, batch, seq_len, *a, **kw):
+        cache = j_init(cfg, batch, seq_len, *a, **kw)
+        if cfg.family != "vlm":
+            return cache
+        k, v = cross_rows(cache["cross_k"].shape)
+        dt = cache["cross_k"].dtype
+        return dict(cache, cross_k=jnp.asarray(k, dt),
+                    cross_v=jnp.asarray(v, dt))
+
+    def tfill(cfg, batch, seq_len, device=None):
+        cache = t_init(cfg, batch, seq_len, device)
+        if cfg.family == "vlm":
+            for leaf, val in zip(cache["cross"],
+                                 cross_rows(tuple(cache["cross"].k.shape))):
+                leaf.copy_(torch.from_numpy(val))
+        return cache
+
+    with mock.patch.object(japi, "init_cache", jfill), \
+            mock.patch.object(tapi, "init_cache", tfill):
+        yield
+
+
+def ref_cache_fields(jcfg, jcache):
+    """The reference's decode cache as {entry: {field: leaf} or None} in
+    the port's layout: a VLM's image K/V as the entry ``cross``, an
+    xLSTM's mLSTM states (super-blocks' then tail's) as one stack."""
+    def fields(e):
+        return None if e is None else dict(e._asdict())
+
+    if jcfg.family == "vlm":
+        return {"self": fields(jcache["self"]),
+                "cross": {"k": jcache["cross_k"], "v": jcache["cross_v"]}}
+    if jcfg.family == "ssm":
+        parts = []
+        if jcache["mlstm"] is not None:
+            parts.append({f: np.asarray(x).reshape((-1,) + x.shape[2:])
+                          for f, x in fields(jcache["mlstm"]).items()})
+        if jcache["tail"] is not None:
+            parts.append({f: np.asarray(x)
+                          for f, x in fields(jcache["tail"]).items()})
+        return {"mlstm": {f: np.concatenate([p[f] for p in parts])
+                          for f in parts[0]} if parts else None,
+                "slstm": fields(jcache["slstm"])}
+    return {key: fields(e) for key, e in jcache.items()}
+
+
+def batch_arrays(b):
+    """The model inputs of a numpy batch as JAX arrays."""
+    return {k: jnp.asarray(b[k]) for k in ("tokens", "image_embeds")
+            if k in b}
 
 
 def routing_margin(p, x, top_k: int) -> torch.Tensor:
@@ -69,9 +175,9 @@ def routing_margin(p, x, top_k: int) -> torch.Tensor:
     return top[:, top_k - 1] - top[:, top_k]
 
 
-def routing_near_ties(model, tcfg, tokens) -> int:
+def routing_near_ties(model, tcfg, batch) -> int:
     """Tokens of the server's MoE dispatches whose k-th and (k+1)-th router
-    probabilities lie within TIE, over a forward of ``tokens`` (0 for a
+    probabilities lie within TIE, over a forward of ``batch`` (0 for a
     dense backbone): where rounding could route differently."""
     from repro_torch.models import base
     seen = []
@@ -81,21 +187,22 @@ def routing_near_ties(model, tcfg, tokens) -> int:
         return tmoe.moe_apply(p, x, **kw)
 
     with mock.patch.object(base, "moe_apply", counting), torch.no_grad():
-        tdeco.collab_forward(model, tcfg, {"tokens": torch.as_tensor(tokens)})
+        tdeco.collab_forward(model, tcfg, to_device(batch, "cpu"))
     return sum(seen)
 
 
 def forward_and_decode(arch):
     """collab_forward (u, v, fhat, corr, logits, aux_loss, mtp_logits)
-    over 2 x 16 tokens, then 5 decode steps of the server (logits, hidden
-    and every cache leaf) against the reference's."""
+    over 2 x 16 tokens (with a VLM's image rows), then 5 decode steps of
+    the server (logits, hidden and every cache leaf; a VLM's over filled
+    image K/V) against the reference's."""
     jcfg, tcfg, params, model = pair(arch)
     b = next(ttok.lm_batches(2, tcfg, 2, 16))
-    ties = routing_near_ties(model, tcfg, b["tokens"])
+    ties = routing_near_ties(model, tcfg, b)
     print(f"\n{arch}: routing near-ties (<= {TIE}) {ties}")
     assert ties == 0, "a routing near-tie: compare outside it"
-    want = jax.jit(lambda p, t: jdeco.collab_forward(p, jcfg, {"tokens": t}))(
-        params, jnp.asarray(b["tokens"]))
+    want = jax.jit(lambda p, jb: jdeco.collab_forward(p, jcfg, jb))(
+        params, batch_arrays(b))
     with torch.no_grad():
         got = tdeco.collab_forward(model, tcfg, to_device(b, "cpu"))
     tol = TOL_E2E["float32"]
@@ -110,8 +217,9 @@ def forward_and_decode(arch):
     assert (got["fhat"] <= got["u"]).all()
     assert (float(got["aux_loss"]) > 0) == tcfg.is_moe
     toks = token_stream(tcfg, 3, 5, seed=1)
-    jcache = japi.init_cache(jcfg, 3, 16)
-    cache = tapi.init_cache(tcfg, 3, 16, "cpu")
+    with filled_cross():
+        jcache = japi.init_cache(jcfg, 3, 16)
+        cache = tapi.init_cache(tcfg, 3, 16, "cpu")
     step = jax.jit(lambda c, t, p: japi.decode_step(params["server"], jcfg,
                                                     c, t, p))
     with torch.inference_mode():
@@ -123,21 +231,25 @@ def forward_and_decode(arch):
             for g, w in ((gh, wh), (gl, wl)):
                 np.testing.assert_allclose(_np(g), _np(w), atol=tol,
                                            rtol=tol)
+    jfields = ref_cache_fields(jcfg, jcache)
+    assert jfields.keys() == cache.keys()
     for key, entry in cache.items():
         if entry is None:
-            assert jcache[key] is None
+            assert jfields[key] is None
             continue
         for name, leaf in zip(entry._fields, entry):
-            np.testing.assert_allclose(_np(leaf),
-                                       _np(getattr(jcache[key], name)),
+            np.testing.assert_allclose(_np(leaf), _np(jfields[key][name]),
                                        atol=tol, rtol=tol,
                                        err_msg=f"{key}.{name}")
 
 
-def loss_and_gradients(arch):
+def loss_and_gradients(arch, null_leaves=()):
     """collab_lm_loss's parts (lm, monitor, safety, aux, mtp, total) and
     every parameter's gradient of the joint loss (leaf by leaf, relative
-    to its largest entry) against the reference's, remat on in both."""
+    to its largest entry) against the reference's, remat on in both.
+    ``null_leaves``: paths whose gradient is zero in exact arithmetic
+    (both packages' are rounding noise); each must be within the
+    tolerance of the largest gradient entry of all leaves, in both."""
     jcfg, tcfg, params, model = pair(arch)
     jcfg, tcfg = (c.replace(remat=True) for c in (jcfg, tcfg))
     b = next(ttok.lm_batches(9, tcfg, 2, 24))
@@ -161,6 +273,11 @@ def loss_and_gradients(arch):
     got = _flatten(bridge.collab_to_numpy(model, grads=True))
     want = _flatten(jax.tree.map(np.asarray, want))
     assert got.keys() == want.keys()
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for path in null_leaves:
+        w = want.pop(path)
+        for g in (got[path], w):
+            assert np.abs(g).max() <= tol * top, (path, np.abs(g).max())
     for path, w in want.items():
         np.testing.assert_allclose(got[path], w, rtol=tol,
                                    atol=tol * np.abs(w).max(), err_msg=path)
@@ -202,16 +319,17 @@ def session(arch, mode):
     and printed), per-stream bytes equal."""
     jcfg, tcfg, params, model = pair(arch)
     stream = token_stream(tcfg, B, S, seed=3)
-    probe = JEngine(params, jcfg, batch=B, max_len=MAX_LEN).session(
-        JSessionConfig(mode="scan")).run(stream)
-    thr, gap = gap_threshold(probe["u"])
-    want = JEngine(params, with_threshold(jcfg, thr), batch=B,
-                   max_len=MAX_LEN).session(JSessionConfig(mode=mode)
-                                            ).run(stream)
-    got = MonitorSession.open(
-        model, tcfg, batch=B, max_len=MAX_LEN, device="cpu",
-        config=SessionConfig(mode=mode, threshold=thr, trigger_margin=0.0)
-    ).run(stream)
+    with filled_cross():
+        probe = JEngine(params, jcfg, batch=B, max_len=MAX_LEN).session(
+            JSessionConfig(mode="scan")).run(stream)
+        thr, gap = gap_threshold(probe["u"])
+        want = JEngine(params, with_threshold(jcfg, thr), batch=B,
+                       max_len=MAX_LEN).session(JSessionConfig(mode=mode)
+                                                ).run(stream)
+        got = MonitorSession.open(
+            model, tcfg, batch=B, max_len=MAX_LEN, device="cpu",
+            config=SessionConfig(mode=mode, threshold=thr,
+                                 trigger_margin=0.0)).run(stream)
     tol = TOL_E2E["float32"]
     ties = tie_band(want["u"], thr, tol)
     print(f"\n{arch} {mode}: tie band |u-thr| <= {tol}: {int(ties.sum())} "
@@ -235,10 +353,11 @@ def sync_equals_scan(arch):
     _, tcfg, _, model = pair(arch)
     tcfg = with_threshold(tcfg, 0.1)
     stream = token_stream(tcfg, 3, 12)
-    rs = CollaborativeEngine(model, tcfg, 3, 32, device="cpu").session(
-        SessionConfig(mode="scan")).run(stream)
-    r1 = CollaborativeEngine(model, tcfg, 3, 32, device="cpu").session().run(
-        stream)
+    with filled_cross():
+        rs = CollaborativeEngine(model, tcfg, 3, 32, device="cpu").session(
+            SessionConfig(mode="scan")).run(stream)
+        r1 = CollaborativeEngine(model, tcfg, 3, 32,
+                                 device="cpu").session().run(stream)
     assert 0 < r1["triggered"].mean() < 1
     np.testing.assert_array_equal(r1["u"], rs["u"])
     np.testing.assert_array_equal(r1["triggered"], rs["triggered"])
@@ -255,9 +374,10 @@ def greedy_generate(arch):
     tolerance here; a tie would fail loudly rather than hide)."""
     jcfg, tcfg, params, model = pair(arch)
     prompt = token_stream(tcfg, 3, 6, seed=3)
-    want = JServeEngine(params["server"], jcfg, 3, 16).generate(
-        jnp.asarray(prompt), 6)
-    eng = ServeEngine(model.server, tcfg, 3, 16, "cpu")
+    with filled_cross():
+        want = JServeEngine(params["server"], jcfg, 3, 16).generate(
+            jnp.asarray(prompt), 6)
+        eng = ServeEngine(model.server, tcfg, 3, 16, "cpu")
     toks, logits = eng.generate(torch.as_tensor(prompt), 6,
                                 return_logits=True)
     top2 = torch.topk(logits, 2, dim=-1).values

@@ -86,8 +86,11 @@ def port_train_steps(tcfg, model, tree, batches, lr):
 
 
 def token_stream(cfg, batch, length, seed=0):
+    """(batch, length) token ids, or (batch, length, K) for the audio
+    family's K codebooks."""
+    tail = (cfg.n_codebooks,) if cfg.family == "audio" else ()
     return np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (batch, length)).astype(np.int32)
+        0, cfg.vocab_size, (batch, length) + tail).astype(np.int32)
 
 
 def gap_threshold(u, lo=0.75, hi=0.92):

@@ -915,3 +915,95 @@ def test_moe_combine_is_bitwise_across_runs(cuda, arch):
     xt = torch.randn((2, 512, cfg.d_model), device=cuda).to(torch.bfloat16)
     assert torch.equal(moe_apply(moe, xt, **kw)[0],
                        moe_apply(moe, xt, **kw)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Hq,Hkv,D,C", [
+    (8, 32, 8, 128, 1601),  # llama-3.2-vision's cross decode: 1601 image rows
+    (8, 32, 32, 64, 512),   # musicgen-large's server tower: G = 1, D = 64
+])
+def test_decode_attention_at_the_last_families_shapes(cuda, dtype, B, Hq, Hkv,
+                                                      D, C, splits):
+    """The cross decode reads every image row (pos = C - 1, C off every
+    power of two, so each split's last tile is partial); also an empty
+    prefix, a ragged vector and the last 8 positions; at every split."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    q = _rand((B, Hq, D), dtype, gen, cuda)
+    k = _rand((B, C, Hkv, D), dtype, gen, cuda)
+    v = _rand((B, C, Hkv, D), dtype, gen, cuda)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for pos in (C - 1, 0, torch.randint(0, C, (B,), generator=gen, device=cuda),
+                C - 1 - torch.arange(B, device=cuda)):
+        out = (decode_attention_cuda(q, k, v, pos) if splits is None
+               else decode_attention_split(q, k, v, pos, splits))
+        ref = decode_attention_plain(q, k, v, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+class _ImageRows:
+    """Within: every ``init_cache`` fills a VLM's image K/V with the same
+    seeded draws (made on the CPU, copied to the cache's device), so the
+    card's and the CPU's sessions read one image."""
+
+    def __enter__(self):
+        from repro_torch.models import api
+        self.api, self.init = api, api.init_cache
+
+        def fill(cfg, batch, seq_len, device=None):
+            cache = self.init(cfg, batch, seq_len, device)
+            if cfg.family == "vlm":
+                gen = torch.Generator().manual_seed(11)
+                for leaf in cache["cross"]:
+                    leaf.copy_(torch.randn(leaf.shape, generator=gen))
+            return cache
+
+        api.init_cache = fill
+        return self
+
+    def __exit__(self, *exc):
+        self.api.init_cache = self.init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large",
+                                  "xlstm-350m"])
+def test_last_families_session_on_card_matches_cpu(cuda, arch):
+    """A SMOKE (f32) sync session on the card, through the kernels,
+    against the same session on the CPU: a VLM with its gates opened and
+    its image K/V filled, musicgen on (B, S, K) tokens, the xLSTM's
+    recurrent states; u and fhat within 1e-4, triggers equal outside the
+    tie band, decode_attention and monitor_combine launched."""
+    cfg = registry.get_smoke(arch)
+    cpu = torch.device("cpu")
+    model_cpu = init_collab_lm(cfg, torch.Generator().manual_seed(0), cpu)
+    for i, cb in enumerate(getattr(model_cpu.server, "cross", None) or ()):
+        cb.gate.fill_(0.5 + 0.1 * i)
+    model_dev = copy.deepcopy(model_cpu).to(cuda)
+    tail = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (4, 16) + tail)
+    runs = []
+    with _ImageRows():
+        probe = MonitorSession.open(model_cpu, cfg, batch=4, max_len=32,
+                                    device=cpu,
+                                    config=SessionConfig(mode="scan")).run(toks)
+        thr = float(np.quantile(probe["u"], 0.8))
+        kernels.reset_launch_counts()
+        for model, dev in ((model_dev, cuda), (model_cpu, cpu)):
+            runs.append(MonitorSession.open(
+                model, cfg, batch=4, max_len=32, device=dev,
+                config=SessionConfig(mode="sync", threshold=thr,
+                                     trigger_margin=0.0)).run(toks))
+    counts = kernels.launch_counts()
+    assert counts["decode_attention"] > 0 and counts["monitor_combine"] > 0
+    a, b = runs
+    band = np.abs(b["u"] - thr) <= 1e-4
+    print(f"\n{arch}: tie band {int(band.sum())} of {band.size}")
+    np.testing.assert_allclose(a["u"], b["u"], atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(a["triggered"][~band], b["triggered"][~band])
+    if not band.any():
+        np.testing.assert_allclose(a["fhat"], b["fhat"], atol=1e-4, rtol=1e-4)
+    assert (a["fhat"] <= a["u"]).all()

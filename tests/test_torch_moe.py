@@ -246,3 +246,16 @@ def test_greedy_generate_matches_reference(arch):
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_bridge_and_checkpoints_cross_both_ways(arch, tmp_path):
     fam.bridge_and_checkpoint(arch, tmp_path)
+
+
+def test_bridge_and_checkpoints_carry_an_empty_moe_stack(tmp_path):
+    """deepseek-v3 SMOKE with its one layer dense and no MTP head: the
+    reference stacks zero MoE layers into ``blocks_moe`` leaves of length
+    0, and the bridge and the checkpoints carry that empty stack both
+    ways in the reference's shapes."""
+    arch = "deepseek-v3-671b+dense1"
+    _, tcfg, params, model = fam.pair(arch)
+    assert len(model.server.blocks_moe) == 0
+    leaves = jax.tree.leaves(params["server"]["blocks_moe"])
+    assert leaves and all(a.shape[0] == 0 for a in leaves)
+    fam.bridge_and_checkpoint(arch, tmp_path)

@@ -94,16 +94,34 @@ def test_registry_paper_configs_are_the_reference(name):
 
 
 def test_registry_names_are_the_reference_less_the_unported():
-    unported = ("musicgen-large", "llama-3.2-vision-11b", "xlstm-350m")
+    """Nothing is left to port: the names are the reference's, in its
+    order, and every config is a copy of the reference's."""
+    assert treg._LATER == ()
     for paper in (False, True):
         want = [n for n in jreg.names(include_paper=paper)
-                if n not in unported]
+                if n not in treg._LATER]
         assert treg.names(include_paper=paper) == want
-    for name in unported:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            treg.get_full(name)
+    for name in ("musicgen-large", "llama-3.2-vision-11b", "xlstm-350m"):
+        for get in ("get_full", "get_smoke"):
+            t, j = getattr(treg, get)(name), getattr(jreg, get)(name)
+            assert t.monitor.__dict__ == j.monitor.__dict__
+            for field in t.__dataclass_fields__.keys() - {"monitor"}:
+                assert getattr(t, field) == getattr(j, field), (name, field)
     with pytest.raises(KeyError):
         treg.get_smoke("no-such-arch")
+
+
+def test_serving_operating_points_equal_the_reference():
+    """Every ``SERVING_*`` operating point of the reference's
+    ``configs/paper_synthetic.py`` is in the port's, with its value."""
+    from repro.configs import paper_synthetic as jsyn
+    from repro_torch.configs import paper_synthetic as tsyn
+    names = [n for n in dir(jsyn) if n.startswith("SERVING_")]
+    assert {"SERVING_TRIGGER_RATE", "SERVING_LATENCY_S",
+            "SERVING_MAX_STALENESS", "SERVING_WIRE_SLOTS"} <= set(names)
+    assert names == [n for n in dir(tsyn) if n.startswith("SERVING_")]
+    for n in names:
+        assert getattr(tsyn, n) == getattr(jsyn, n), n
 
 
 # ------------------------------------------------------------ paper_forward
