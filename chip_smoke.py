@@ -81,7 +81,8 @@ Phases, each printing its own lines:
               one stream run at max_staleness 2 with the same checks.
               Per run: tokens/s, ms/step, stall, overlap ratio, peak
               memory.
-9. serve-wire -- the serve cell (granite-8b, 36 layers) with the server
+9. serve-wire -- the serve cell (granite-8b, 36 layers; 32 of its 64
+              steps) with the server
               half in a second process: a CorrectionServer at 16 slots
               started with multiprocessing's spawn, its weights from the
               same seed (a digest of them must match the client's).
@@ -148,12 +149,34 @@ Phases, each printing its own lines:
               decode at the cross decode's C = 1601 (pos 1600) and at
               musicgen's 32/32 heads of 64, every split, and flash at
               musicgen's (2, 4096, 32, 64).
+13. mesh    -- right after phase 4's granite-8b cell, on its model,
+              tokens, operating point and runs: mesh-sharded serving
+              (serving/mesh.py) of granite-8b FULL (36 layers), B = 8, 64
+              steps, sync and scan: a fresh unsharded engine bitwise the
+              serve cell's runs, timed beside the sharded ones in the same
+              loop; data:1 on the card bitwise the unsharded run; data:4 over the card four times bitwise,
+              shard for shard, four unsharded engines of 2 rows fed each
+              shard's streams (results, server cache, launch counts), and
+              against the unsharded B = 8 run the triggers outside the
+              tie band, fhat's largest gap; bytes_per_device a quarter of
+              the whole cache; no cross-shard step; the edge path's op
+              check.  The phase's launches in the kernels line are the
+              sharded runs' (data:4, data:8, the data:4 server); the
+              comparison runs print theirs apart.  Then data:8 at B = 64
+              for 16 steps; a
+              CorrectionServer(mesh="data:4") of 16 slots serving a data:2
+              wire session for 8 steps with one defrag across shards,
+              held to the unsharded server and bitwise to the data:2 sync
+              engine; and moe_dispatch(impl="ep") under a one-rank NCCL
+              group at mixtral-8x22b's and deepseek-v3's full layer
+              widths, bitwise moe_apply.
 
 --profile adds torch.profiler breakdowns of one sync and one scan run, of
 one train step per model, of a train_paper step and of a generate step
 per model, and the CUDA stream ids of the serve kernels in a short async
-stream run per model (the phases run in the order 1-4, 8, 9, 10, 11's
-and 12's serve cells, 5, 11's and 12's train cells, 6, 7).
+stream run per model (the phases run in the order 1-3, 4's granite-8b
+cell, 13, 4's zamba2-7b cell, 8, 9, 10, 11's and 12's serve cells, 5,
+11's and 12's train cells, 6, 7).
 Then
 one JSON line of the kernels, the
 card's name and power limit, and a last line {"ok": true, "device":
@@ -1031,9 +1054,11 @@ def _leaves(tree):
 
 # ---------------------------------------------------------------- phase 4
 def phase_serve(torch, dev, args, cfg, twice: bool = False,
-                wire_steps: int = 0):
+                wire_steps: int = 0, keep: bool = False):
     """MonitorSession sync and scan over ``cfg`` at full width; returns the
-    kernels' launch counts in those runs.  ``twice``: a second sync run
+    kernels' launch counts in those runs (and with ``keep``, what the mesh
+    phase reuses: the model, the operating point, the tokens, the runs
+    and the sync run's engine).  ``twice``: a second sync run
     must equal the first bitwise, and an MoE backbone's dispatch is held
     bitwise across runs (``moe_bitwise``).  A VLM's cross gates are
     opened (``open_gates``).  ``wire_steps``: a wire k = 0 run of that
@@ -1076,11 +1101,13 @@ def phase_serve(torch, dev, args, cfg, twice: bool = False,
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()  # count the main path's launches only
-    runs = {}
+    runs, engines = {}, {}
     for mode in ("sync", "scan"):
         before = kernels.launch_counts()
         t0 = time.perf_counter()
-        runs[mode] = r = session(mode, **conf).run(toks)
+        sess = session(mode, **conf)
+        runs[mode] = r = sess.run(toks)
+        engines[mode] = sess.engine
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launched = {k: n - before[k] for k, n in kernels.launch_counts().items()}
@@ -1136,7 +1163,10 @@ def phase_serve(torch, dev, args, cfg, twice: bool = False,
             counts[name] += n
     if args.profile:
         profile(torch, session, conf, toks[:, :PROFILE_STEPS], cfg.name)
-    del model, session
+    if keep:
+        return counts, dict(model=model, conf=conf, toks=toks, runs=runs,
+                            engine=engines["sync"])
+    del model, session, engines
     return counts
 
 
@@ -2166,6 +2196,9 @@ def _dev_us(event) -> float:
 # size (WIRE_SMOKE_BATCH streams, WIRE_SMOKE_STEPS steps)
 SERVER_SLOTS = 16
 WIRE_STALENESS = (0, 2)
+# the serve-wire phase's steps: 32 of the serve cell's 64 since the mesh
+# phase came in (the script's time limit)
+WIRE_STEPS = 32
 WIRE_SMOKE_BATCH, WIRE_SMOKE_STEPS = 4, 16
 SUN_PATH_MAX = 100  # a Unix socket's path must fit sockaddr_un (108 bytes)
 
@@ -2286,7 +2319,7 @@ def phase_wire(torch, dev, args, cfg) -> dict:
     from repro_torch.serving import MonitorSession, SessionConfig
     from repro_torch.serving.collaborative import CollaborativeEngine
     from repro_torch.serving.tracker import read_stats
-    B, ML, S = BATCH, MAX_LEN, STEPS
+    B, ML, S = BATCH, MAX_LEN, WIRE_STEPS
     label = f"[serve-wire] {cfg.name}"
     tmp = tempfile.mkdtemp(prefix="wire_")
     uds = socket_path(tmp)
@@ -3611,6 +3644,326 @@ def phase_last_train(torch, dev, args) -> dict:
 
 
 
+# ---------------------------------------------------------------- phase 13
+MESH_SHARDS = 4          # data:4 over the one card
+MESH_WIDE = (64, 16)     # the data:8 run: B, steps
+MESH_SERVER = (16, 8)    # the sharded server: slots, steps of session B
+MESH_EP_TOKENS = (8, 16)  # the EP layer's tokens: B, S
+
+
+def _mesh_run(torch, kernels, label, eng, conf, toks):
+    """One session run of ``conf`` on ``eng``: (result, ms/step, launches
+    in the run)."""
+    from repro_torch.serving import SessionConfig
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = eng.session(SessionConfig(**conf)).run(toks)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / toks.shape[1] * 1e3
+    launched = {k: n - before[k] for k, n in kernels.launch_counts().items()
+                if k in SERVE_KERNELS}
+    print(f"[mesh] {label}: {ms:.2f} ms/step over {toks.shape[1]} steps x "
+          f"{toks.shape[0]} streams; launches {launched}")
+    return r, ms, launched
+
+
+def _same_cache(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for ea, eb in zip(a.values(), b.values())
+               if ea is not None for x, y in zip(ea, eb))
+
+
+def mesh_server(torch, dev, model, cfg, toks) -> dict:
+    """A CorrectionServer of 16 slots sharded data:4 (4 rows a shard) in
+    a thread; session A (4 streams, shard 0) takes 2 steps, session B (a
+    data:2 engine, 8 streams on shards 1-2) 2 steps, A leaves and its hole
+    is defragged (B's rows move to shards 0-1), B takes 6 more.  The same
+    schedule on an unsharded server; B held bitwise to a data:2 sync
+    engine (each server shard replays one client shard's rows) and to the
+    unsharded server in u, triggers, server_pos and bytes, fhat within
+    2e-2 (its GEMMs run at 16 rows, not 4).  Returns the sharded server
+    run's launches (the unsharded one's are printed)."""
+    from repro_torch import kernels
+    from repro_torch.serving import SessionConfig, TransportSpec
+    from repro_torch.serving import mesh as mesh_mod
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    from repro_torch.serving.server import CorrectionServer
+    slots, steps = MESH_SERVER
+    nb = toks.shape[0]
+    out, launched = {}, {}
+    for label, mesh in (("data:4", mesh_mod.MeshSpec.parse("data:4").build(
+            [dev] * 4)), ("unsharded", None)):
+        tmp = short_tmpdir("ms")
+        srv = CorrectionServer(cfg, model, slots=slots, max_len=MAX_LEN,
+                               uds=socket_path(tmp), device=dev, mesh=mesh)
+        stop = threading.Event()
+        th = threading.Thread(target=srv.serve_forever,
+                              kwargs=dict(stop=stop), daemon=True)
+        th.start()
+        wire = SessionConfig(mode="sync", transport=TransportSpec(
+            "wire", address=srv.address))
+        two = mesh_mod.MeshSpec.parse("data:2").build([dev] * 2)
+        try:
+            a = CollaborativeEngine(model, cfg, 4, MAX_LEN, device=dev)
+            b = CollaborativeEngine(model, cfg, nb, MAX_LEN, device=dev,
+                                    mesh=two)
+            mesh_mod.reset_cross_shard_steps()
+            kernels.reset_launch_counts()
+            sa = a.session(wire)
+            for t in range(2):
+                sa.step(toks[:4, t])
+            sb = b.session(wire)
+            rows = [sb.step(toks[:, t]) for t in range(2)]
+            lo_before = sorted(s.lo for s in srv._sessions.values())
+            sa.close()
+            deadline = time.monotonic() + 30
+            while srv.stats["defrags"] < 1:
+                check(time.monotonic() < deadline, f"{label} server defrag")
+                time.sleep(0.01)
+            lo_after = sorted(s.lo for s in srv._sessions.values())
+            rows += [sb.step(toks[:, t]) for t in range(2, steps)]
+            sb.close()
+            torch.cuda.synchronize()
+            launched[label] = {k: n for k, n in
+                               kernels.launch_counts().items()
+                               if k in SERVE_KERNELS}
+        finally:
+            stop.set()
+            th.join(timeout=60)
+            srv.close()
+        check(lo_before == [0, 4] and lo_after == [0],
+              f"{label}: B's lease moved from row 4 to 0 ({lo_before} -> "
+              f"{lo_after})")
+        moved = mesh_mod.cross_shard_steps().get("defrag", 0)
+        check(moved == (1 if mesh is not None else 0),
+              f"{label}: one defrag across shards ({moved})")
+        out[label] = dict(server_pos=b.server_pos.copy(), **{
+            k: np.stack([r[k] for r in rows], 1)
+            for k in ("u", "fhat", "triggered")})
+    sync_eng = CollaborativeEngine(model, cfg, nb, MAX_LEN, device=dev,
+                                   mesh=mesh_mod.MeshSpec.parse(
+                                       "data:2").build([dev] * 2))
+    sync = sync_eng.session().run(toks[:, :steps])
+    sh, un = out["data:4"], out["unsharded"]
+    for k in ("u", "fhat", "triggered"):
+        check(np.array_equal(sh[k], sync[k]),
+              f"sharded server bitwise the data:2 sync engine: {k}")
+    for k in ("u", "triggered", "server_pos"):
+        check(np.array_equal(sh[k], un[k]),
+              f"sharded server == unsharded server: {k}")
+    gap = float(np.abs(sh["fhat"] - un["fhat"]).max())
+    check(gap <= TOL_E2E["bfloat16"], f"server fhat gap {gap} <= 2e-2")
+    check((sh["fhat"] <= sh["u"]).all(), "sharded server fhat <= u")
+    print(f"[mesh] CorrectionServer(mesh=data:4), {slots} slots: session B "
+          f"({nb} streams, data:2) {steps} steps with one defrag across "
+          f"shards: u, fhat, triggers bitwise the data:2 sync engine; "
+          f"against the unsharded server u, triggers, server_pos bitwise, "
+          f"fhat {'bitwise' if gap == 0 else f'max gap {gap:.3e}'}; "
+          f"launches data:4 {launched['data:4']}, unsharded "
+          f"{launched['unsharded']}")
+    return launched["data:4"]
+
+
+def mesh_ep(torch, dev, seed: int) -> None:
+    """moe_dispatch(impl="ep") under a one-rank NCCL group, a (1, 1)
+    (data, model) DeviceMesh, at one MoE layer of mixtral-8x22b (8 experts
+    of 6144 x 16384) and of deepseek-v3 (256 experts of 7168 x 2048 and
+    the shared expert): y and aux bitwise moe_apply, and its time."""
+    import os
+    import socket as socket_mod
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import deepseek_v3_671b, mixtral_8x22b
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.nn import moe as tmoe
+    with socket_mod.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # gloo only where a CPU rehearsal passes dev = cpu
+    cuda = torch.device(dev).type == "cuda"
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}",
+        world_size=1, rank=0, **({"device_id": torch.device(dev)}
+                                 if cuda else {}))
+    try:
+        mesh = init_device_mesh(torch.device(dev).type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for cfg in (mixtral_8x22b.FULL, deepseek_v3_671b.FULL):
+            gen = torch.Generator(dev).manual_seed(seed)
+            mod = tmoe.MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                           n_shared=cfg.n_shared_experts,
+                           dtype=torch.bfloat16, device=dev)
+            mod.init_(gen)
+            x = torch.randn(MESH_EP_TOKENS + (cfg.d_model,), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                      capacity_factor=cfg.capacity_factor)
+            local = tmoe.local_moe(mod, mesh)
+            with torch.inference_mode():
+                want, waux = tmoe.moe_apply(mod, x, **kw)
+                with shd.use_mesh(mesh):
+                    got, aux = tmoe.moe_dispatch(local, x, impl="ep", **kw)
+                    ms_ep = time_ms(torch, lambda i: tmoe.moe_dispatch(
+                        local, x, impl="ep", **kw), 5)[0]
+                ms = time_ms(torch, lambda i: tmoe.moe_apply(mod, x, **kw),
+                             5)[0]
+            check(torch.equal(got, want) and torch.equal(aux, waux),
+                  f"{cfg.name} moe_dispatch(ep) bitwise moe_apply")
+            print(f"[mesh] {cfg.name} MoE layer ({cfg.n_experts} experts of "
+                  f"{cfg.d_model} x {cfg.moe_d_ff}, top {cfg.top_k}, "
+                  f"{cfg.n_shared_experts} shared) on "
+                  f"{MESH_EP_TOKENS[0]} x {MESH_EP_TOKENS[1]} tokens under "
+                  f"a one-rank NCCL group: moe_dispatch(ep) bitwise "
+                  f"moe_apply; {ms_ep:.3f} ms against {ms:.3f} ms")
+            del mod, local, x, want, got
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(torch, dev, args, kept) -> dict:
+    """granite-8b FULL served sharded, on the serve cell's model, tokens
+    and operating point (``kept``, from phase_serve), its unsharded sync
+    and scan runs the reference: data:1 and data:4 over the card (see
+    the module docstring, phase 13), data:8 at B = 64, the sharded
+    correction server, the edge path's op check and the EP dispatch;
+    returns the serve kernels' launches in the phase's runs."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import granite_8b
+    from repro_torch.serving import mesh as mesh_mod
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    model, toks = kept["model"], kept["toks"]
+    cfg = granite_8b.FULL.replace(monitor=dataclasses.replace(
+        granite_8b.FULL.monitor, **kept["conf"]))
+    thr = kept["conf"]["threshold"]
+    B, S, n = toks.shape[0], toks.shape[1], MESH_SHARDS
+    b = B // n
+
+    def engine(batch, shards=None):
+        mesh = None if shards is None else mesh_mod.MeshSpec.parse(
+            f"data:{shards}").build([dev] * shards)
+        return CollaborativeEngine(model, cfg, batch, MAX_LEN, device=dev,
+                                   mesh=mesh)
+
+    # every engine is built (and sharded: the op check runs then) before
+    # the timed runs; each run counts its own launches
+    kept.pop("engine")   # the serve cell's engine: its sessions are spent
+    plain, d1, d4 = engine(B), engine(B, 1), engine(B, n)
+    smalls = [engine(b) for _ in range(n)]
+    mesh_mod.reset_cross_shard_steps()
+    res = {}
+    for mode in ("sync", "scan"):
+        conf = dict(mode=mode)
+        res["plain", mode] = _mesh_run(torch, kernels, f"unsharded {mode}",
+                                       plain, conf, toks)
+        res["d1", mode] = _mesh_run(torch, kernels, f"data:1 {mode}", d1,
+                                    dict(conf, mesh="data:1"), toks)
+        res["d4", mode] = _mesh_run(torch, kernels, f"data:{n} {mode}", d4,
+                                    dict(conf, mesh=f"data:{n}"), toks)
+        res["small", mode] = [
+            _mesh_run(torch, kernels, f"B = {b} engine {i} {mode}", e, conf,
+                      toks[i * b:(i + 1) * b]) for i, e in enumerate(smalls)]
+    # the kernels line counts the sharded path's runs only
+    counts = {k: sum(res["d4", mode][2][k] for mode in ("sync", "scan"))
+              for k in SERVE_KERNELS}
+    check(mesh_mod.cross_shard_steps() == {},
+          f"no cross-shard step in sync and scan "
+          f"({mesh_mod.cross_shard_steps()})")
+    keys = {"sync": ("u", "fhat", "triggered"),
+            "scan": ("u", "fhat", "triggered", "served")}
+    tol = TOL_E2E["bfloat16"]
+    for mode in ("sync", "scan"):
+        p, d, q = (res[kind, mode][0] for kind in ("plain", "d1", "d4"))
+        for k in keys[mode]:
+            check(np.array_equal(p[k], kept["runs"][mode][k]),
+                  f"unsharded {mode} bitwise the serve cell's run: {k}")
+            check(np.array_equal(d[k], p[k]), f"data:1 {mode} bitwise "
+                  f"unsharded: {k}")
+            for i, (r, _, _) in enumerate(res["small", mode]):
+                check(np.array_equal(q[k][i * b:(i + 1) * b], r[k]),
+                      f"data:{n} {mode} shard {i} bitwise its B = {b} "
+                      f"engine: {k}")
+        launched = res["d4", mode][2]
+        summed = {k: sum(r[2][k] for r in res["small", mode])
+                  for k in SERVE_KERNELS}
+        check(launched == summed, f"data:{n} {mode} launches {launched} == "
+              f"the B = {b} engines' {summed}")
+        for k in ("u", "fhat"):
+            check(np.isfinite(q[k]).all(), f"data:{n} {mode} finite {k}")
+        check((q["fhat"] <= q["u"]).all(), f"data:{n} {mode} fhat <= u")
+        band = np.abs(p["u"] - thr) <= tol
+        check(np.array_equal(q["triggered"][~band], p["triggered"][~band]),
+              f"data:{n} {mode} triggers == unsharded outside the tie band")
+        print(f"[mesh] {mode}: data:1 bitwise unsharded; data:{n} shard for "
+              f"shard bitwise {n} engines of B = {b} (launches {launched}); "
+              f"against unsharded B = {B}: max |u| gap "
+              f"{float(np.abs(q['u'] - p['u']).max()):.3e}, max |fhat| gap "
+              f"{float(np.abs(q['fhat'] - p['fhat']).max()):.3e}, triggers "
+              f"equal outside the tie band (|u - thr| <= {tol}: "
+              f"{int(band.sum())} of {band.size}); ms/step unsharded "
+              f"{res['plain', mode][1]:.2f}, data:1 {res['d1', mode][1]:.2f}, "
+              f"data:{n} {res['d4', mode][1]:.2f}")
+    check(0.0 < res["plain", "sync"][0]["triggered"].mean() < 1.0,
+          "mixed triggers")
+    for i, sh in enumerate(d4.shards):
+        check(_same_cache(torch, sh.server.cache, smalls[i].server.cache),
+              f"data:{n} shard {i} server cache bitwise its engine's")
+    check(_same_cache(torch, d1.shards[0].server.cache, plain.server.cache),
+          "data:1 server cache bitwise unsharded")
+    for name in SERVE_KERNELS:
+        check(res["d4", "sync"][2][name] > 0,
+              f"{name} launched by the data:{n} engine")
+    whole = mesh_mod._tree_bytes(plain.server.cache)
+    per = mesh_mod.bytes_per_device(d4.server.cache)
+    check(per * n == whole, f"bytes_per_device {per} == {whole} / {n}")
+    t0 = time.perf_counter()
+    ops = mesh_mod.edge_ops(d4)
+    for name, records in ops.items():
+        mesh_mod.assert_collective_free(records, f"monitor path [{name}]")
+    print(f"[mesh] server cache {whole} B whole, {per} B a mesh position; "
+          f"edge path op check on the card: "
+          f"{ {k: len(v) for k, v in ops.items()} } ops, no c10d op, no "
+          f"cross-device copy, no op over two shards "
+          f"({time.perf_counter() - t0:.2f} s)")
+    del plain, d1, d4, smalls, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wb, ws = MESH_WIDE
+    wtoks = np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab_size, (wb, ws))
+    wide = engine(wb, 8)
+    r, ms, launched = _mesh_run(torch, kernels, f"data:8 B = {wb} sync",
+                                wide, dict(mode="sync", mesh="data:8"), wtoks)
+    for k, v in launched.items():
+        counts[k] += v
+    check(np.isfinite(r["u"]).all() and np.isfinite(r["fhat"]).all()
+          and (r["fhat"] <= r["u"]).all(), "data:8 finite, fhat <= u")
+    check(0.0 < r["triggered"].mean() < 1.0, "data:8 mixed triggers")
+    check(r["comms"]["bytes_sent"] <= r["comms"]["bytes_baseline"],
+          "data:8 bytes_sent <= baseline")
+    print(f"[mesh] data:8 at B = {wb}: {wb * ws / (ms * ws / 1e3):.1f} "
+          f"tokens/s, trigger rate {r['triggered'].mean():.3f}, server "
+          f"cache {mesh_mod.bytes_per_device(wide.server.cache)} B a mesh "
+          f"position")
+    del wide
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for k, v in mesh_server(torch, dev, model, cfg, toks).items():
+        counts[k] += v
+    kept.clear()   # the caller's references too: the model's 16 GB
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_ep(torch, dev, args.seed)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3683,13 +4036,24 @@ def main(argv=None) -> int:
     # launches on the main paths: each path's run counts from 0, and a
     # kernel's count is the sum over the paths that run it
     counts = dict.fromkeys(records, 0)
-    for cfg in (full, zfull):
-        run = phase_serve(torch, dev, args, cfg)
-        for name in SERVE_KERNELS:
-            counts[name] += run[name]
-        gc.collect()  # the serve phase's model and sessions are gone
-        torch.cuda.empty_cache()
-    took("serve")
+    run, kept = phase_serve(torch, dev, args, full, keep=True)
+    for name in SERVE_KERNELS:
+        counts[name] += run[name]
+    took("serve granite-8b")
+    # phase 13 on the serve cell's model, operating point and runs
+    run = phase_mesh(torch, dev, args, kept)
+    for name in SERVE_KERNELS:
+        counts[name] += run[name]
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    took("mesh")
+    run = phase_serve(torch, dev, args, zfull)
+    for name in SERVE_KERNELS:
+        counts[name] += run[name]
+    gc.collect()  # the serve phase's model and sessions are gone
+    torch.cuda.empty_cache()
+    took("serve zamba2-7b")
     for cfg, every_run in ((full, True), (zfull, False)):
         run = phase_async(torch, dev, args, cfg, every_run)
         for name in SERVE_KERNELS:

@@ -10,7 +10,10 @@ Two engines:
     through the ``MonitorSession`` API: one ``SessionConfig`` describes
     the mode (sync / async), the transport, the staleness and the address
     (``--transport``, ``--max-staleness``, ``--latency-ms``, ``--address``;
-    ``shm`` and ``fleet:<router>`` addresses included).
+    ``shm`` and ``fleet:<router>`` addresses included).  ``--mesh
+    data:N`` shards its per-stream state over N devices
+    (``serving/mesh.py``): the first N cards, or N virtual shards on the
+    launcher's device when the host has fewer (printed).
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
           --device cpu --tokens 64 --batch 4
@@ -46,8 +49,13 @@ def run_collab(args, cfg, params, device=None) -> None:
 
     B, S = args.batch, args.tokens
     stream = next(tok.lm_batches(5, cfg, B, S))["tokens"]
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.serving.mesh import MeshSpec, virtual_devices
+        mesh = MeshSpec.parse(args.mesh).build(
+            virtual_devices(args.mesh, params.v_head.w.device))
     eng = CollaborativeEngine(params, cfg, batch=B, max_len=S + 8,
-                              device=device)
+                              device=device, mesh=mesh)
     if args.transport in ("wire", "shm") and not args.address:
         raise SystemExit(f"--transport {args.transport} needs --address "
                          "(start: python -m repro_torch.launch.server)")
@@ -153,8 +161,9 @@ def main(argv=None) -> None:
     ap.add_argument("--latency-ms", type=float, default=None,
                     help="simulated RTT; default keeps the transport's own")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
-                    help="collab engine only: mesh-sharded per-stream "
-                         "state; not ported yet (raises)")
+                    help="collab engine only: shard the per-stream state "
+                         "over a mesh, e.g. data:8 (virtual shards on the "
+                         "launcher's device when the host has fewer cards)")
     ap.add_argument("--trace", default=None, metavar="FILE",
                     help="collab engine only: trace the session "
                          "(SessionConfig(trace=True)) and export Perfetto "
@@ -169,8 +178,6 @@ def main(argv=None) -> None:
     if args.mesh is not None:
         if args.engine != "collab":
             ap.error("--mesh serves the collab engine (use --engine collab)")
-        from repro_torch.serving.api import _later
-        raise _later("mesh-sharded serving", "8 (mesh + analysis)")
 
     from repro_torch.core.decomposition import init_collab_lm
     from repro_torch.nn.module import resolve_device

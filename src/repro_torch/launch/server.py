@@ -18,7 +18,9 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.server \\
 then serve against it with
 ``SessionConfig(mode="async", transport="wire:/tmp/corr.sock")``; with
 ``--transport shm`` a same-host client of ``"shm:/tmp/corr.sock"`` moves
-its data frames through a shared-memory ring pair.
+its data frames through a shared-memory ring pair.  ``--mesh data:N``
+shards the super-batch over N devices (``serving/mesh.py``): the first N
+cards, or N virtual shards on ``--device`` when the host has fewer.
 Without ``--device`` the server runs on the card, and raises without one.
 """
 from __future__ import annotations
@@ -159,8 +161,9 @@ def main(argv=None) -> None:
                          "memory ring arena on the HELLO handshake (UDS "
                          "only; wire clients are still served)")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
-                    help="a mesh-sharded super-batch; not ported yet: the "
-                         "server raises")
+                    help="shard the super-batch over a mesh, e.g. data:8 "
+                         "(virtual shards on --device when the host has "
+                         "fewer cards)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="restore weights from a checkpoint in the JAX "
                          "package's layout")
@@ -201,17 +204,23 @@ def main(argv=None) -> None:
     if args.trace_file:
         from repro_torch.observability import Tracer
         tracer = Tracer()
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.serving.mesh import MeshSpec, virtual_devices
+        mesh = MeshSpec.parse(args.mesh).build(virtual_devices(args.mesh,
+                                                               dev))
     srv = CorrectionServer(cfg, params, slots=args.slots,
                            max_len=args.max_len, uds=args.uds,
                            host=args.host,
                            port=args.port if args.port is not None else 0,
-                           coalesce=not args.no_coalesce, mesh=args.mesh,
+                           coalesce=not args.no_coalesce, mesh=mesh,
                            tracker=tracker, tracer=tracer,
                            stats_interval_s=args.stats_interval_s,
                            shm=args.transport == "shm", device=dev)
     print(f"correction server: arch={args.arch} slots={args.slots} "
           f"max_len={args.max_len} coalesce={not args.no_coalesce} "
-          f"transport={args.transport} device={dev} listening on "
+          f"transport={args.transport} device={dev} "
+          f"mesh={srv.mesh_spec} listening on "
           f"{srv.address}", flush=True)
     if args.ready_file:
         write_ready(args.ready_file, srv.address, weights_digest(params))

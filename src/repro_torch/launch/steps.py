@@ -18,7 +18,7 @@ through ``decode_step``, its combine is one ``monitor_combine`` launch,
 and train/prefill reach ``flash_attention`` (and ``ssd_scan`` on the
 hybrid) through ``collab_forward``.  The reference's ``step_and_specs``
 (shape-only inputs for its dry run) belongs with the dry run, which is not
-ported (ROADMAP queue 1, item 8).
+ported (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 

@@ -3,9 +3,11 @@
 Trains the collaborative LM with AdamW under ``warmup_cosine`` through
 ``launch/steps.py::make_train_step``, logs every 10 steps, and writes
 checkpoints in the JAX package's layout (``training/checkpoint.py``).
-The port runs on one device: ``--mesh host`` (the default) is that
-device; the production meshes (``--mesh production|multipod``) are not
-ported yet and raise (ROADMAP queue 1, item 8).  On the card, dense
+The port trains on one device: ``--mesh host`` (the default) is the
+host mesh over that device.  The production meshes (``--mesh
+production|multipod``, ``launch/mesh.py``) need 256 and 512 devices and
+raise a ValueError naming both counts on a smaller host; a train step
+across a ``DeviceMesh`` is ROADMAP queue 1, item 9.  On the card, dense
 archs reach the ``flash_attention`` kernel and the hybrid also
 ``ssd_scan``, through ``collab_forward``.
 
@@ -46,9 +48,13 @@ def main(argv=None) -> None:
                     help="torch device (default: the card; 'cpu' to run "
                          "on the host)")
     args = ap.parse_args(argv)
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     if args.mesh != "host":
+        # a host with fewer devices ends here, as the reference's does
+        make_production_mesh(multi_pod=args.mesh == "multipod")
         from repro_torch.serving.api import _later
-        raise _later(f"the {args.mesh} mesh", "8 (mesh + analysis)")
+        raise _later(f"a train step across the {args.mesh} mesh",
+                     "9 (dry run + mesh training)")
 
     from repro_torch.core.decomposition import init_collab_lm
     from repro_torch.nn.module import resolve_device
@@ -58,7 +64,8 @@ def main(argv=None) -> None:
     cfg = (registry.get_smoke(args.arch) if args.smoke
            else registry.get_full(args.arch))
     # the reference's host mesh over this process's one device
-    print(f"mesh {{'data': 1, 'model': 1}}  arch {cfg.name}  "
+    mesh = make_host_mesh(model=1, devices=[dev])
+    print(f"mesh {mesh.shape}  arch {cfg.name}  "
           f"batch {args.batch} x seq {args.seq}")
 
     opt = AdamW(lr=warmup_cosine(args.lr, 100, max(args.steps, 1000)))

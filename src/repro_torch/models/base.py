@@ -13,7 +13,7 @@ from repro_torch.nn.attention import (GQA, MLA, KVCache, MLACache,
                                      gqa_decode, gqa_prefill, mla_decode,
                                      mla_prefill)
 from repro_torch.nn.mlp import SwiGLU, swiglu
-from repro_torch.nn.moe import MoE, moe_apply
+from repro_torch.nn.moe import MoE, moe_dispatch
 from repro_torch.nn.module import resolve_device
 from repro_torch.nn.norms import RMSNorm, rmsnorm
 
@@ -79,9 +79,10 @@ def rope_dim(cfg: ArchConfig) -> int:
 def _ffn(p: Block, hn: torch.Tensor, cfg: ArchConfig, groups: int = 1):
     """SwiGLU, or the MoE with its load-balance loss (0 for SwiGLU)."""
     if hasattr(p, "moe"):
-        return moe_apply(p.moe, hn, n_experts=cfg.n_experts, top_k=cfg.top_k,
-                         capacity_factor=cfg.capacity_factor,
-                         compute_dtype=cdt(cfg), groups=groups)
+        return moe_dispatch(p.moe, hn, n_experts=cfg.n_experts,
+                            top_k=cfg.top_k,
+                            capacity_factor=cfg.capacity_factor,
+                            compute_dtype=cdt(cfg), groups=groups)
     return (swiglu(p.mlp, hn, compute_dtype=cdt(cfg)),
             torch.zeros((), dtype=torch.float32, device=hn.device))
 

@@ -33,7 +33,7 @@ the reference's scatter-add over slots) in f32, one add a choice, where an
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -108,18 +108,22 @@ def _exclusive_rank(onehot: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def _slot_table(top_i: torch.Tensor, *, n_experts: int, C: int,
-                groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """(slot_tok (E*Cb,), slot_of (T, k), Cb).
+                groups: int = 1, e_lo: int = 0, e_sel: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """(slot_tok (e_sel*Cb,), slot_of (T, k), Cb).
 
     An assignment (token t, choice j) to expert e is kept when fewer than
     ``C`` earlier tokens of t's group chose e (the reference's stable
-    sort ranks them so); a kept one goes to slot ``e*Cb + i``, i its rank
-    among all kept assignments to e (token order).  ``slot_of[t, j]`` is
-    that slot, or the sentinel ``E*Cb`` when dropped; ``slot_tok[s]`` the
-    token in slot s, or the sentinel T when empty.  Integer work only, so
-    it is deterministic on every device."""
+    sort ranks them so); a kept one goes to slot ``(e - e_lo)*Cb + i``, i
+    its rank among all kept assignments to e (token order), when e is one
+    of this table's experts ``e_lo .. e_lo + e_sel - 1`` (all of them by
+    default; an expert-parallel rank's own otherwise).  ``slot_of[t, j]``
+    is that slot, or the sentinel ``e_sel*Cb`` when dropped or another
+    rank's; ``slot_tok[s]`` the token in slot s, or the sentinel T when
+    empty.  Integer work only, so it is deterministic on every device."""
     T, k = top_i.shape
     E = n_experts
+    e_sel = E if e_sel is None else e_sel
     idx = top_i.long()
     onehot = torch.zeros((T, E), dtype=torch.int32, device=idx.device)
     onehot.scatter_(1, idx, 1)
@@ -127,13 +131,15 @@ def _slot_table(top_i: torch.Tensor, *, n_experts: int, C: int,
     kept = torch.zeros_like(onehot).scatter_(1, idx, keep.to(torch.int32))
     rank = torch.gather(_exclusive_rank(kept, 1), 1, idx)
     Cb = min(T, groups * C)
-    slot_of = torch.where(keep, idx * Cb + rank, E * Cb)
+    if e_sel != E:
+        keep = keep & (idx >= e_lo) & (idx < e_lo + e_sel)
+    slot_of = torch.where(keep, (idx - e_lo) * Cb + rank, e_sel * Cb)
     tok = torch.arange(T, device=idx.device)[:, None].expand(T, k)
-    slot_tok = torch.full((E * Cb + 1,), T, dtype=torch.long,
+    slot_tok = torch.full((e_sel * Cb + 1,), T, dtype=torch.long,
                           device=idx.device)
     slot_tok.scatter_(0, slot_of.reshape(-1),
                       torch.where(keep, tok, T).reshape(-1))
-    return slot_tok[:E * Cb], slot_of, Cb
+    return slot_tok[:e_sel * Cb], slot_of, Cb
 
 
 def _expert_ffn(xf, slot_tok, wg, wu, wd, *, n_experts: int, Cb: int,
@@ -197,3 +203,145 @@ def moe_apply(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
         y = y + _shared_ffn(p.shared, xf, compute_dtype)
     return y.reshape(B, S, d).to(x.dtype), aux
 
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel dispatch (the reference's shard_map ``moe_apply_ep``).
+#
+# Under the ambient DeviceMesh (``distributed.sharding.use_mesh``) each
+# data rank routes only its own tokens, at the capacity of its own token
+# count; activations are replicated over ``model``, so no token moves.
+# Each model rank holds E/model experts (E % model == 0: deepseek-v3's 256)
+# or a d_ff slice of every expert (mixtral's 8 on a wider axis), cut from
+# the whole weights by ``local_moe`` under the partition rules, applies
+# them, and the partials combine with ONE all_reduce over ``model`` a
+# layer.  The shared expert is cut by the same rules and its partial joins
+# that one sum.
+# ---------------------------------------------------------------------------
+
+
+def local_moe(p: MoE, device_mesh) -> MoE:
+    """This rank's block of ``p`` under ``distributed.sharding``'s rules on
+    ``device_mesh``: the router whole, the experts and the shared expert
+    cut by ``local_shard`` (views of ``p``'s weights).  The result carries
+    the specs it was cut with, which ``moe_apply_ep`` reads."""
+    from repro_torch.distributed import sharding as shd
+    specs = shd.param_specs({"moe": shd.param_shapes(p)}, device_mesh)["moe"]
+    coords = shd.mesh_coords(device_mesh)
+    out = MoE.__new__(MoE)
+    nn.Module.__init__(out)
+
+    def cut(t: torch.Tensor, spec) -> nn.Parameter:
+        return nn.Parameter(shd.local_shard(t.data, spec, device_mesh, coords),
+                            requires_grad=t.requires_grad)
+
+    out.router = p.router
+    for name in ("w_gate", "w_up", "w_down"):
+        setattr(out, name, cut(getattr(p, name), specs[name]))
+    out.shared = None
+    if p.shared is not None:
+        out.shared = SharedExpert.__new__(SharedExpert)
+        nn.Module.__init__(out.shared)
+        for name in ("w_gate", "w_up", "w_down"):
+            setattr(out.shared, name, cut(getattr(p.shared, name),
+                                          specs["shared"][name]))
+    out.specs = specs
+    return out
+
+
+def _model_split(spec) -> bool:
+    return any(ax == "model" or (isinstance(ax, tuple) and "model" in ax)
+               for ax in spec)
+
+
+def ep_applicable(n_experts: int) -> bool:
+    """True when a DeviceMesh with a ``model`` dim wider than 1 is current
+    (``distributed.sharding.use_mesh``).  E % model == 0 selects
+    expert-parallel, otherwise the d_ff dim is split; both dispatch each
+    data rank's tokens locally."""
+    from repro_torch.distributed import sharding as shd
+    mesh = shd.current_mesh()
+    return mesh is not None and shd.mesh_sizes(mesh).get("model", 1) > 1
+
+
+def moe_apply_ep(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
+                 capacity_factor: float = 1.25, compute_dtype=torch.bfloat16,
+                 groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply``'s math, dispatched on this rank of the current
+    DeviceMesh: ``x`` (B_local, S, d) is this data rank's tokens, ``p`` its
+    block (``local_moe``).  The router and the slot table run on the local
+    tokens at the local capacity; the experts this rank holds (or its d_ff
+    slice of every expert) and its shared-expert slice give a partial
+    output, summed over ``model`` by one ``all_reduce`` (its backward is
+    the identity, and the inputs' gradients are summed over ``model`` on
+    the way back, megatron's ``g`` and ``f``).  aux is the mean over the
+    data ranks.  With a model dim of 1 this is ``moe_apply`` bit for bit."""
+    from repro_torch.distributed import sharding as shd
+    mesh = shd.current_mesh()
+    if mesh is None:
+        raise ValueError("moe_apply_ep needs a current DeviceMesh "
+                         "(distributed.sharding.use_mesh)")
+    specs = getattr(p, "specs", None)
+    if specs is None:
+        raise ValueError("moe_apply_ep takes this rank's block of the MoE "
+                         "weights: cut them with nn.moe.local_moe")
+    sizes = shd.mesh_sizes(mesh)
+    coords = shd.mesh_coords(mesh)
+    model = sizes.get("model", 1)
+    mgroup = mesh.get_group("model") if "model" in sizes else None
+    B, S, d = x.shape
+    T = B * S
+    if T % groups:
+        raise ValueError(f"{T} tokens do not split into {groups} groups")
+    xf = x.reshape(T, d)
+    top_p, top_i, aux = _route(p, xf, n_experts, top_k)
+    dsize = 1
+    for ax in shd.data_axes(mesh):
+        if sizes[ax] > 1:
+            aux = shd.reduce_from(aux, mesh.get_group(ax))
+            dsize *= sizes[ax]
+    aux = aux / dsize if dsize > 1 else aux
+    expert_parallel = specs["w_gate"] and specs["w_gate"][0] == "model"
+    e_sel = p.w_gate.shape[0]
+    e_lo = coords["model"] * e_sel if expert_parallel else 0
+    C = expert_capacity(T // groups, n_experts, top_k, capacity_factor)
+    slot_tok, slot_of, Cb = _slot_table(top_i, n_experts=n_experts, C=C,
+                                        groups=groups, e_lo=e_lo, e_sel=e_sel)
+    split = mgroup is not None and model > 1
+    xr = shd.copy_to(xf, mgroup) if split else xf
+    pr = shd.copy_to(top_p, mgroup) if split else top_p
+    eo = _expert_ffn(xr, slot_tok, p.w_gate, p.w_up, p.w_down,
+                     n_experts=e_sel, Cb=Cb, compute_dtype=compute_dtype)
+    y = _combine(eo, slot_of, top_i, pr)
+    whole = None    # parts every model rank computes in full
+    if not _model_split(specs["w_gate"]) and split:
+        whole, y = y, torch.zeros_like(y)
+    if p.shared is not None:
+        ys = _shared_ffn(p.shared, xr, compute_dtype)
+        if _model_split(specs["shared"]["w_gate"]) or not split:
+            y = y + ys
+        else:
+            whole = ys if whole is None else whole + ys
+    if mgroup is not None:
+        y = shd.reduce_from(y, mgroup)   # the layer's one all_reduce
+    if whole is not None:
+        y = y + whole
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def moe_dispatch(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
+                 capacity_factor: float = 1.25, compute_dtype=torch.bfloat16,
+                 groups: int = 1, impl: str = "auto"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``impl``: ``dense`` (``moe_apply``), ``ep`` (``moe_apply_ep``) or
+    ``auto`` (ep when a DeviceMesh with a model dim wider than 1 is
+    current).  With no mesh current this is ``moe_apply`` exactly."""
+    if impl not in ("dense", "ep", "auto"):
+        raise ValueError(f"unknown MoE dispatch {impl!r}: dense, ep or auto")
+    if impl == "ep" or (impl == "auto" and ep_applicable(n_experts)):
+        return moe_apply_ep(p, x, n_experts=n_experts, top_k=top_k,
+                            capacity_factor=capacity_factor,
+                            compute_dtype=compute_dtype, groups=groups)
+    return moe_apply(p, x, n_experts=n_experts, top_k=top_k,
+                     capacity_factor=capacity_factor,
+                     compute_dtype=compute_dtype, groups=groups)

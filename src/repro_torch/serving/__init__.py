@@ -3,8 +3,9 @@
 wire codec (``serving/wire.py``), the same-host shared-memory rings
 (``serving/shm.py``), the standalone correction server
 (``serving/server.py``, run with ``python -m repro_torch.launch.server``),
-the threshold policies and the cascade (``serving/policy.py``) and the
-metrics trackers (``serving/tracker.py``).  A fleet of correction servers
+the threshold policies and the cascade (``serving/policy.py``), the
+metrics trackers (``serving/tracker.py``) and mesh-sharded serving
+(``serving/mesh.py``, imported on use).  A fleet of correction servers
 behind a routing supervisor (``TransportSpec.parse("fleet:<router>")``)
 lives in ``serving/fleet.py``, imported on use (its subprocess backend
 pulls in the launcher):

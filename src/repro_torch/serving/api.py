@@ -26,9 +26,12 @@ transport (``"shm:/tmp/corr.sock"``) moves the data frames into a
 same-host shared-memory ring pair, and a ``fleet:<router>`` address
 (``python -m repro_torch.launch.fleet``) routes the session to the
 least-loaded server of a fleet and fails it over to a sibling when that
-server dies or drains.  Mesh sharding and the recompile guard are later
-slices of the port; asking for them raises ``NotImplementedError`` naming
-their ROADMAP item.
+server dies or drains.  ``SessionConfig(mesh="data:8")`` serves on a
+mesh-sharded engine (``serving/mesh.py``): the engine is sharded at open
+(on the first cards, or already sharded over virtual devices with
+``CollaborativeEngine(..., mesh=MeshSpec.parse(...).build(devices))``).
+The recompile guard comes with a later slice of the port and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -137,7 +140,11 @@ class SessionConfig:
                       ``MonitorSession.open``.
     capacity       -- scan mode's static correction capacity.
     monitor_n      -- Eq.-8 truncation override for the serving u head.
-    mesh           -- mesh-sharded serving; not ported (raises).
+    mesh           -- a ``serving.mesh.MeshSpec`` or ``"data:8"``-style
+                      string: the session shards its engine's per-stream
+                      state over the mesh's data axis at open (idempotent
+                      for an engine already sharded so; a different mesh
+                      is refused).  None: whatever the engine is.
     trace          -- span tracing: the session installs an
                       ``observability.Tracer`` on the engine for its
                       lifetime (``MonitorSession.tracer``/``export_trace``).
@@ -166,7 +173,8 @@ class SessionConfig:
             object.__setattr__(self, "transport",
                                TransportSpec.parse(self.transport))
         if self.mesh is not None:
-            raise _later("mesh-sharded serving", "8 (mesh + analysis)")
+            from repro_torch.serving.mesh import MeshSpec
+            object.__setattr__(self, "mesh", MeshSpec.parse(self.mesh))
         if self.max_staleness < 0:
             raise ValueError("max_staleness must be >= 0")
         if self.trace_capacity <= 0:
@@ -300,6 +308,11 @@ class MonitorSession:
             return
         if self._state == "closed":
             raise RuntimeError("session is closed")
+        if self.config.mesh is not None:
+            # before any worker is built: the worker adopts the sharded
+            # server cache
+            from repro_torch.serving.mesh import ensure_sharded
+            ensure_sharded(self._engine, self.config.mesh)
         if self.config.trace:
             # installed before any worker is built, so the dispatcher
             # captures it
@@ -503,5 +516,5 @@ class MonitorSession:
         """The reference's guard over its jitted paths.  The port runs
         eagerly; its counterpart is a graph-capture guard over the serve
         step captured in CUDA graphs, which comes with the analysis port
-        (ROADMAP queue 1, item 8)."""
-        raise _later("the recompile guard", "8 (mesh + analysis)")
+        (ROADMAP queue 1, item 10)."""
+        raise _later("the recompile guard", "10 (analysis)")

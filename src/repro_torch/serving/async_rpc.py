@@ -102,6 +102,55 @@ class Backlog(NamedTuple):
     triggered: torch.Tensor
 
 
+class Sharded(tuple):
+    """The per-shard parts, in row order, of one batch-major quantity of a
+    mesh-sharded engine (``serving/mesh.py``): each part lives on its
+    shard's device and covers its rows.  Nothing gathers them on a
+    device; ``to_host`` joins them on the host."""
+
+
+class ShardedBacklog(Sharded):
+    """One ``Backlog`` a shard, each with its own rounds."""
+
+    @property
+    def triggered(self) -> Sharded:
+        return Sharded(b.triggered for b in self)
+
+    @property
+    def tokens(self) -> torch.Tensor:
+        """The whole (R, B[, K]) token block on the host, each shard's
+        rounds padded with zeros to the longest (what the wire ships: a
+        stream reads only its own backlog's rounds)."""
+        parts = [b.tokens.cpu() for b in self]
+        R = max(p.shape[0] for p in parts)
+        return torch.cat([torch.cat([p, p.new_zeros((R - p.shape[0],)
+                                                    + p.shape[1:])])
+                          for p in parts], dim=1)
+
+
+def parts_of(x) -> tuple:
+    """The per-lane parts of ``x``: its ``Sharded`` parts, or ``(x,)``
+    for an unsharded engine's one lane."""
+    return tuple(x) if isinstance(x, Sharded) else (x,)
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor, or ``Sharded`` parts joined along the batch axis, as a
+    host array."""
+    if isinstance(x, Sharded):
+        return np.concatenate([to_host(p) for p in x])
+    return x.cpu().numpy()
+
+
+def _tensors(x):
+    """Every tensor of a nest of tuples (backlogs, ``Sharded`` parts)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    else:
+        for y in x:
+            yield from _tensors(y)
+
+
 @dataclass
 class CatchupRequest:
     """One trigger step's worth of server work for one same-position
@@ -163,6 +212,7 @@ class ServerWorker:
     kind = "inproc"
 
     def __init__(self, catchup_fn: Callable, params: Any, cache: Any):
+        # a sharded engine's ``cache`` is one part a shard (``Sharded``)
         self._fn = catchup_fn
         self._params = params
         self.cache = cache
@@ -174,34 +224,37 @@ class ServerWorker:
     # -- server side ---------------------------------------------------------
     def _enqueue(self, req: CatchupRequest, ready=None):
         """Queue one catch-up on the current stream.  Returns (out, start,
-        done), ``out`` (2, B) holding v and fhat: on a CUDA device a
-        pinned host copy, valid once the event ``done`` has completed
+        done), ``out`` one (2, rows) block of v and fhat a lane (a
+        ``Sharded`` engine's shards, else one): on a CUDA device pinned
+        host copies, valid once the event ``done`` has completed
         (``start``: an event after the wait on ``ready``, the dispatching
         stream's event that orders this work after the request's inputs);
         on the CPU final, and the events are None."""
         if ready is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
-            for t in (*req.backlog, req.u):
+            for t in _tensors((req.backlog, req.u)):
                 t.record_stream(stream)
         start = None
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             start.record()
         v, fhat = self._fn(self._params, self.cache, req.backlog, req.u)
-        out = torch.stack((v, fhat))
+        # one (2, rows) block a lane: a shard's, or the whole batch's
+        out = [torch.stack(p) for p in zip(parts_of(v), parts_of(fhat))]
         if start is None:
             return out, None, None
-        out = out.to("cpu", non_blocking=True)  # into pinned memory
+        # into pinned memory
+        out = [p.to("cpu", non_blocking=True) for p in out]
         done = torch.cuda.Event(enable_timing=True)
         done.record()
         return out, start, done
 
-    def _reply(self, req: CatchupRequest, out: torch.Tensor, server_s: float,
-               ready_at: float) -> CatchupReply:
-        """The reply from a finished catch-up's ``out`` (copied: a pinned
-        block goes back to the host allocator's cache)."""
-        v, fhat = out.numpy().copy()
+    def _reply(self, req: CatchupRequest, out: List[torch.Tensor],
+               server_s: float, ready_at: float) -> CatchupReply:
+        """The reply from a finished catch-up's ``out`` (joined into a
+        copy: a pinned block goes back to the host allocator's cache)."""
+        v, fhat = np.concatenate([p.numpy() for p in out], axis=1)
         return CatchupReply(req.req_id, req.t, req.triggered, v, fhat,
                             server_s, wall_ready=ready_at)
 

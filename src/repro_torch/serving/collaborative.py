@@ -33,6 +33,17 @@ stream i ships only stream i's backlog and charges only stream i in the
     ``core.gating.compact_correction`` with static capacity.  It does not
     touch the engine's protocol state.
 
+All three paths run unchanged on a mesh-sharded engine
+(``serving/mesh.py``: ``CollaborativeEngine(..., mesh=...)`` or
+``SessionConfig(mesh="data:8")``): the parameters are replicated, every
+per-stream buffer is split over the mesh's data axis into shards of B/N
+rows, and each shard's edge decode, u head, history record and catch-up
+run on its own rows on its own device (``_lanes``: the shards, or the
+engine itself as one lane).  The per-stream protocol is elementwise, so
+shard i of a data:N engine computes exactly what an unsharded engine of
+B/N rows fed shard i's streams does.  The scan's compaction stays global
+where its capacity binds (``_scan``).
+
 ``self.metrics`` (a ``MetricsRegistry``) is always on.  The span tracer
 is off (``None``) unless a session installs one
 (``SessionConfig(trace=True)``); each instrumentation site is then one
@@ -53,7 +64,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import api as model_api
 from repro_torch.nn.module import linear, resolve_device
 from repro_torch.observability import MetricsRegistry
-from repro_torch.serving.async_rpc import Backlog
+from repro_torch.serving import mesh as mesh_mod
+from repro_torch.serving.async_rpc import (Backlog, Sharded, ShardedBacklog,
+                                          parts_of, to_host)
 from repro_torch.serving.engine import ServeEngine, step_at
 
 # payload: one token id (4B) + edge score (4B) per shipped token
@@ -70,7 +83,7 @@ class CollaborativeEngine:
 
     def __init__(self, params: deco.CollabLM, cfg: ArchConfig, batch: int,
                  max_len: int, *, device, capacity: Optional[int] = None,
-                 monitor_n: Optional[int] = None):
+                 monitor_n: Optional[int] = None, mesh=None):
         self.device = resolve_device(device)
         if _params_device(params) != self.device:
             raise ValueError(f"parameters are on {_params_device(params)}, "
@@ -78,6 +91,7 @@ class CollaborativeEngine:
         self.cfg, self.m = cfg, cfg.monitor
         self.params = params
         self.batch, self.max_len = batch, max_len
+        self.lo, self.hi = 0, batch  # the rows of the engine as one lane
         self.edge = ServeEngine(params.edge, deco.edge_arch(cfg), batch,
                                 max_len, self.device)
         self.server = ServeEngine(params.server, cfg, batch, max_len,
@@ -101,6 +115,24 @@ class CollaborativeEngine:
         self._dispatcher = None
         self._worker = None
         self._remote_detached = False  # set when a wire session closes
+        # mesh-sharded serving (serving/mesh.py): ``mesh`` is a MeshSpec,
+        # a "data:8"-style string or a built ``Mesh`` (its devices given)
+        self.mesh = None
+        self.mesh_spec = None
+        self.shards = None
+        if mesh is not None:
+            mesh_mod.shard_engine(self, mesh)
+
+    def _lanes(self):
+        """The units the device work runs in: each shard of a sharded
+        engine (its rows ``lo:hi``, device, parameter replica, towers and
+        history), or the engine itself."""
+        return self.shards if self.shards is not None else (self,)
+
+    def _join(self, parts, kind=Sharded):
+        """One value from the lanes' parts: ``kind`` (``Sharded``) on a
+        sharded engine, the one part on an unsharded one."""
+        return kind(parts) if self.shards is not None else parts[0]
 
     def _calibrated_point(self) -> np.float32:
         return np.float32(self.m.threshold - self.m.trigger_margin)
@@ -130,17 +162,18 @@ class CollaborativeEngine:
         return torch.sum(hidden_t.float() * hd.w[:, 0], dim=-1) + hd.b[0]
 
     # -- online (lazy, per-element) path -------------------------------------
-    def _record_at(self, tokens_t: torch.Tensor, pos: np.ndarray,
+    def _record_at(self, lane, tokens_t: torch.Tensor, pos: np.ndarray,
                    active: np.ndarray) -> None:
         """history[i, pos[i]] = tokens_t[i] (an id, or (K,) ids) where
-        active; other slots keep their history bit-for-bit."""
-        rows = torch.arange(self.batch, device=self.device)
+        active, on ``lane``'s rows; other slots keep their history
+        bit-for-bit."""
+        rows = torch.arange(lane.batch, device=lane.device)
         idx = torch.as_tensor(np.clip(pos, 0, self.max_len - 1),
-                              device=self.device)
-        act = torch.as_tensor(active, device=self.device).reshape(
+                              device=lane.device)
+        act = torch.as_tensor(active, device=lane.device).reshape(
             (-1,) + (1,) * len(self.tok_tail))
-        self._history[rows, idx] = torch.where(act, tokens_t,
-                                               self._history[rows, idx])
+        lane._history[rows, idx] = torch.where(act, tokens_t,
+                                               lane._history[rows, idx])
 
     def _backlog(self, server_pos: np.ndarray, t, triggered: np.ndarray,
                  history: Optional[np.ndarray] = None) -> Backlog:
@@ -153,34 +186,56 @@ class CollaborativeEngine:
         ``history``: None reads the engine's own (on the device); the
         correction server passes its host mirror, (B, max_len[, K]) int32,
         whose tokens are gathered on the host and uploaded as one (R, B)
-        block (R, B, K for audio)."""
-        B = self.batch
-        t_vec = np.broadcast_to(np.asarray(t, np.int64), (B,))
+        block (R, B, K for audio).  A sharded engine returns one backlog a
+        shard (``async_rpc.ShardedBacklog``), each with its own rounds:
+        ``n_rounds`` is computed here on the host from host arrays, so no
+        shard waits on a reduction over the others."""
+        t_vec = np.broadcast_to(np.asarray(t, np.int64), (self.batch,))
+        parts = []
+        for ln in self._lanes():
+            rows = slice(ln.lo, ln.hi)
+            parts.append(self._lane_backlog(
+                ln, server_pos[rows], t_vec[rows], triggered[rows],
+                None if history is None else history[rows]))
+        return self._join(parts, ShardedBacklog)
+
+    def _lane_backlog(self, lane, server_pos, t_vec, triggered,
+                      history) -> Backlog:
+        B = lane.batch
         n_rounds = int(np.max(np.where(triggered, t_vec + 1 - server_pos, 0)))
         # every round's positions, masks and tokens in one transfer/gather
         pos = server_pos[None, :] + np.arange(n_rounds)[:, None]     # (R, B)
         act = triggered[None, :] & (pos <= t_vec[None, :])
         clipped = np.clip(pos, 0, self.max_len - 1)
+        dev = lane.device
         if history is None:
-            idx = torch.as_tensor(clipped, device=self.device)
-            rows = torch.arange(B, device=self.device)
-            tokens = self._history[rows[None, :], idx]        # (R, B[, K])
+            idx = torch.as_tensor(clipped, device=dev)
+            rows = torch.arange(B, device=dev)
+            tokens = lane._history[rows[None, :], idx]        # (R, B[, K])
         else:
             tokens = torch.as_tensor(
                 history[np.arange(B)[None, :], clipped].astype(np.int64),
-                device=self.device)
+                device=dev)
         return Backlog(
             tokens=tokens,
-            pos=torch.as_tensor(pos.astype(np.int32), device=self.device),
-            active=torch.as_tensor(act, device=self.device),
-            triggered=torch.as_tensor(triggered, device=self.device))
+            pos=torch.as_tensor(pos.astype(np.int32), device=dev),
+            active=torch.as_tensor(act, device=dev),
+            triggered=torch.as_tensor(triggered, device=dev))
 
     def _catchup_v(self, params, cache, backlog: Backlog) -> torch.Tensor:
         """Masked per-element server catch-up on ``cache`` (written in
-        place; untriggered rows stay bit-unchanged).  Returns v (B,)."""
-        B = self.batch
-        last_hidden = torch.zeros((B, self.cfg.d_model), dtype=torch.float32,
-                                  device=self.device)
+        place; untriggered rows stay bit-unchanged).  Returns v (B,).
+        Each lane replays its part of ``cache`` and ``backlog`` on its own
+        replica of ``params`` (the engine's, which the worker protocol
+        passes); on a sharded engine v comes back as ``Sharded`` parts."""
+        return self._join([self._lane_catchup_v(ln, c, b) for ln, c, b in
+                           zip(self._lanes(), parts_of(cache),
+                               parts_of(backlog))])
+
+    def _lane_catchup_v(self, lane, cache, backlog: Backlog) -> torch.Tensor:
+        params = lane.params
+        last_hidden = torch.zeros((lane.batch, self.cfg.d_model),
+                                  dtype=torch.float32, device=lane.device)
         for r in range(backlog.tokens.shape[0]):
             _, hidden = step_at(params.server, self.cfg, cache,
                                 backlog.tokens[r], backlog.pos[r],
@@ -211,7 +266,13 @@ class CollaborativeEngine:
         session's worker runs this on the cache it owns; it reads nothing
         of the engine's live state."""
         v = self._catchup_v(params, cache, backlog)
-        return v, self._fuse(u, v, backlog.triggered)
+        # a lane with nothing triggered replays no round and fuses nothing
+        # (fhat = u), as an engine of its rows is not called
+        return v, self._join([
+            ui if bl.tokens.shape[0] == 0 else self._fuse(ui, vi,
+                                                          bl.triggered)
+            for ui, vi, bl in zip(parts_of(u), parts_of(v),
+                                  parts_of(backlog))])
 
     def _catchup(self, params, cache, server_pos: np.ndarray, t,
                  triggered: np.ndarray, u: torch.Tensor):
@@ -234,20 +295,27 @@ class CollaborativeEngine:
             raise ValueError(f"stream longer than max_len={self.max_len}")
         tr = self._tracer
         t0 = tr.clock() if tr is not None else 0.0
-        tokens_t = torch.as_tensor(np.asarray(tokens_t),
-                                   device=self.device).long()
-        self._record_at(tokens_t, pos, active)
-        act_d = torch.as_tensor(active, device=self.device)
-        pos_d = torch.as_tensor(pos.astype(np.int32), device=self.device)
-        _, hidden = self.edge.decode_at(tokens_t, pos_d, act_d,
-                                        with_logits=False)
-        u = self._u_head(self.params, hidden)
-        if not active.all():
-            u = torch.where(act_d, u, torch.zeros_like(u))
+        tokens_np = np.asarray(tokens_t)
+        us = []
+        for ln in self._lanes():  # each shard on its own rows and device
+            rows = slice(ln.lo, ln.hi)
+            tok = torch.as_tensor(tokens_np[rows], device=ln.device).long()
+            act = active[rows]
+            self._record_at(ln, tok, pos[rows], act)
+            act_d = torch.as_tensor(act, device=ln.device)
+            pos_d = torch.as_tensor(pos[rows].astype(np.int32),
+                                    device=ln.device)
+            _, hidden = ln.edge.decode_at(tok, pos_d, act_d,
+                                          with_logits=False)
+            u = self._u_head(ln.params, hidden)
+            if not act.all():
+                u = torch.where(act_d, u, torch.zeros_like(u))
+            us.append(u)
+        u = self._join(us)
         if tr is not None:
             tr.done("edge.decode", "edge", t0, step=self.t)
             t1 = tr.clock()
-        u_np = u.cpu().numpy()  # the step's one host sync
+        u_np = to_host(u)  # the step's one host sync (one a shard)
         # per-stream thresholds (a policy's, or the calibrated point)
         triggered = (u_np > self._thr_eff) & active
         if tr is not None:
@@ -282,7 +350,7 @@ class CollaborativeEngine:
             t0 = tr.clock() if tr is not None else 0.0
             _, fhat_d = self._catchup(self.params, self.server.cache,
                                       self.server_pos, t_vec, triggered, u)
-            fhat = fhat_d.cpu().numpy()
+            fhat = to_host(fhat_d)
             if tr is not None:
                 # the sync path blocks on the server here
                 tr.done("edge.catchup", "edge", t0, step=self.t,
@@ -324,6 +392,12 @@ class CollaborativeEngine:
         if self._dispatcher is not None:
             raise RuntimeError("async session already open")
         self._check_not_detached()
+        if (transport in ("stream", "thread", "mock_remote")
+                and len({ln.device for ln in self._lanes()}) > 1):
+            raise ValueError(
+                f"the {transport} transport runs its catch-ups on one "
+                "device's stream: a sharded engine whose shards span "
+                "several devices serves async over inproc (or wire)")
         if worker is None:
             wire_opts = None
             if transport in ("wire", "shm") and address is not None:
@@ -464,7 +538,9 @@ class CollaborativeEngine:
         else:
             self.server.zero_rows(rows)
         self.edge.zero_rows(rows)
-        self._history[slot] = 0
+        for ln in self._lanes():  # only the owning shard's row
+            if ln.lo <= slot < ln.hi:
+                ln._history[slot - ln.lo] = 0
         self.server_pos[slot] = 0
         self.edge_pos[slot] = 0
         # a fresh tenant starts at the calibrated operating point: a
@@ -485,32 +561,71 @@ class CollaborativeEngine:
         self.active[slot] = False
 
     # -- offline scan path ---------------------------------------------------
-    def _scan(self, params, tokens: torch.Tensor, thr_eff: torch.Tensor):
-        """Edge + server decode in lockstep over time on fresh caches of the
-        engine's capacity (so attention widths match the online path),
-        corrections through compact_correction.  Returns batch-major
-        (u, fhat, triggered, served)."""
+    def _scan(self, tokens: np.ndarray, thr: np.ndarray):
+        """Edge + server decode in lockstep over time, each lane on its
+        rows of ``tokens`` (B, S[, K]) on fresh caches of B/N rows (so
+        attention widths match the online path), corrections through
+        ``compact_correction``.  The compaction picks ``capacity`` rows
+        over the whole batch: where that binds on a sharded engine, what
+        it reads is gathered onto the first lane's device and each lane
+        handed back its rows, the one cross-shard step a scan step (a
+        per-shard compaction would be a different result); elsewhere each
+        lane compacts its own rows.  Returns batch-major (u, fhat,
+        triggered, served), joined as the lanes are."""
+        lanes = self._lanes()
+        n = len(lanes)
+        B, S = tokens.shape[:2]
+        if B % n:
+            raise ValueError(f"scan batch {B} not divisible by the mesh "
+                             f"data size {n}")
+        b = B // n
         ecfg = deco.edge_arch(self.cfg)
         cfg, m = self.cfg, self.m
-        B, S = tokens.shape[:2]
-        edge_cache = model_api.init_cache(ecfg, B, self.max_len, self.device)
-        server_cache = model_api.init_cache(cfg, B, self.max_len, self.device)
+        gather = n > 1 and self.capacity < B
 
-        def corrector(buf):  # (capacity, d) gathered server hiddens
-            return m.s * deco.sigma(self._v_head(params, buf), m.sigma)
+        def corrector(params):  # (capacity, d) gathered server hiddens
+            return lambda buf: m.s * deco.sigma(self._v_head(params, buf),
+                                                m.sigma)
 
-        out = []
+        runs = []
+        for i, ln in enumerate(lanes):
+            rows, dev = slice(i * b, (i + 1) * b), ln.device
+            runs.append(dict(
+                lane=ln, tok=torch.as_tensor(tokens[rows], device=dev).long(),
+                thr=torch.as_tensor(thr[rows], device=dev),
+                ec=model_api.init_cache(ecfg, b, self.max_len, dev),
+                sc=model_api.init_cache(cfg, b, self.max_len, dev), out=[]))
+        d0 = lanes[0].device
+        thr0 = torch.as_tensor(thr, device=d0) if gather else None
         for t in range(S):
-            tok_t = tokens[:, t]
-            _, eh = model_api.decode_step(params.edge, ecfg, edge_cache, tok_t,
-                                          t, with_logits=False)
-            u = self._u_head(params, eh)
-            _, sh = model_api.decode_step(params.server, cfg, server_cache,
-                                          tok_t, t, with_logits=False)
-            fhat, served, _ = compact_correction(
-                u, sh.float(), corrector, thr_eff, 0.0, self.capacity)
-            out.append((u, fhat, u > thr_eff, served))
-        return tuple(torch.stack(x, dim=1) for x in zip(*out))
+            us, hs = [], []
+            for run in runs:
+                p, tok_t = run["lane"].params, run["tok"][:, t]
+                _, eh = model_api.decode_step(p.edge, ecfg, run["ec"], tok_t,
+                                              t, with_logits=False)
+                us.append(self._u_head(p, eh))
+                _, sh = model_api.decode_step(p.server, cfg, run["sc"],
+                                              tok_t, t, with_logits=False)
+                hs.append(sh.float())
+            if gather:
+                mesh_mod.count_cross_shard("scan_gather")
+                fhat, served, _ = compact_correction(
+                    torch.cat([u.to(d0) for u in us]),
+                    torch.cat([h.to(d0) for h in hs]),
+                    corrector(lanes[0].params), thr0, 0.0, self.capacity)
+                parts = [(fhat[i * b:(i + 1) * b].to(ln.device),
+                          served[i * b:(i + 1) * b].to(ln.device))
+                         for i, ln in enumerate(lanes)]
+            else:
+                parts = [compact_correction(
+                    u, h, corrector(run["lane"].params), run["thr"], 0.0,
+                    min(self.capacity, b))[:2]
+                    for run, u, h in zip(runs, us, hs)]
+            for run, u, (f, sv) in zip(runs, us, parts):
+                run["out"].append((u, f, u > run["thr"], sv))
+        per = [tuple(torch.stack(x, dim=1) for x in zip(*run["out"]))
+               for run in runs]
+        return tuple(self._join([p[k] for p in per]) for k in range(4))
 
     @torch.inference_mode()
     def _run_scan(self, token_stream) -> Dict[str, object]:
@@ -518,18 +633,16 @@ class CollaborativeEngine:
         when capacity == batch).  Comms come from the trigger trace: a
         trigger at time t ships the backlog since that stream's previous
         trigger, so a stream ships (index of its last trigger + 1) tokens."""
-        tokens = torch.as_tensor(np.asarray(token_stream),
-                                 device=self.device).long()
-        B, S = tokens.shape[:2]
+        tokens_np = np.asarray(token_stream)
+        B, S = tokens_np.shape[:2]
         if S > self.max_len:
             raise ValueError(f"stream longer than max_len={self.max_len}")
         tr = self._tracer
         t0 = tr.clock() if tr is not None else 0.0
         thr = (self._thr_eff if B == self.batch
                else np.full(B, self._calibrated_point(), np.float32))
-        u, fhat, trig, served = self._scan(
-            self.params, tokens, torch.as_tensor(thr, device=self.device))
-        trig_np = trig.cpu().numpy()
+        u, fhat, trig, served = self._scan(tokens_np, thr)
+        trig_np = to_host(trig)
         if tr is not None:
             tr.done("scan.run", "edge", t0, batch=int(B), steps=int(S))
         comms = CommsMeter(bytes_per_request=TOKEN_BYTES, n_streams=B)
@@ -537,8 +650,8 @@ class CollaborativeEngine:
         last = np.where(any_trig, S - 1 - np.argmax(trig_np[:, ::-1], axis=1), -1)
         comms.update_per_stream(last + 1, np.full(B, S, np.int64),
                                 events=trig_np.sum(axis=1))
-        return {"u": u.cpu().numpy(), "fhat": fhat.cpu().numpy(),
-                "triggered": trig_np, "served": served.cpu().numpy(),
+        return {"u": to_host(u), "fhat": to_host(fhat),
+                "triggered": trig_np, "served": to_host(served),
                 "comms": comms.report()}
 
     # -- the reference engine's shim ------------------------------------------

@@ -22,7 +22,8 @@ masked replay through the engine's ``_catchup_v`` on the server's cache:
 Rows of different sessions never interact (the replay is per-element
 masked).  Each reply's fhat is fused from that request's own u and trigger
 mask, in one ``monitor_combine`` call over every reply of the replay (the
-call ``_catchup_apply`` makes), before the replay's one copy to the host.
+call ``_catchup_apply`` makes; one a shard on a sharded server), before
+the replay's one copy to the host (one a shard).
 A coalesced reply can carry a fresher v than its request asked for; any
 corrector still only lowers fhat, so the monitor's upper bound stands.
 
@@ -43,8 +44,14 @@ while every control frame stays on the socket.  The reactor registers
 each session's doorbell fd beside the sockets, so ring traffic wakes it
 like socket traffic; the reply ring never blocks the reactor: what does
 not fit stays in the session's residue buffer and flushes when the
-client's consume rings the doorbell.  The reference's mesh-sharded
-super-batch (``mesh=``) is not ported and raises.
+client's consume rings the doorbell.
+
+``mesh=`` (``"data:8"``, a ``MeshSpec`` or a built ``Mesh``;
+``serving/mesh.py``) shards the super-batch: each shard holds slots/N
+cache rows on its device, a coalesced replay runs each shard's catch-up
+on its own rows and fuses each reply row on the shard that owns it, a
+lease reset zeroes rows only on their shard, and the lease defrag moves
+rows across shards with their sessions, the placement kept.
 """
 from __future__ import annotations
 
@@ -63,11 +70,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.module import resolve_device
 from repro_torch.observability import MetricsRegistry, Tracer
+from repro_torch.serving import mesh as mesh_mod
 from repro_torch.serving import shm as shm_mod
 from repro_torch.serving import wire
-from repro_torch.serving.api import _later
 from repro_torch.serving.collaborative import CollaborativeEngine
-from repro_torch.serving.engine import permute_cache_rows, zero_cache_rows
 from repro_torch.serving.tracker import Histogram, Tracker
 
 # sendmsg gather limit per flush: under any IOV_MAX (Linux has 1024); a
@@ -115,8 +121,6 @@ class CorrectionServer:
                  shm: bool = False,
                  shm_ring_bytes: int = shm_mod.DEFAULT_RING_BYTES,
                  device=None):
-        if mesh is not None:
-            raise _later("a mesh-sharded super-batch", "8 (mesh + analysis)")
         self.cfg, self.m = cfg, cfg.monitor
         self.slots, self.max_len = int(slots), int(max_len)
         self.coalesce = bool(coalesce)   # server-wide kill switch
@@ -129,7 +133,8 @@ class CorrectionServer:
         # batch=slots gives it and the super-batch server cache (its edge
         # tower and comms meter go unused: the edge lives in the clients)
         self._eng = CollaborativeEngine(params, cfg, self.slots, self.max_len,
-                                        device=self.device)
+                                        device=self.device, mesh=mesh)
+        self.mesh_spec = self._eng.mesh_spec
         self._cache = self._eng.server.cache
         # a token's tail: (K,) for the audio family's codebooks, else ();
         # a client's HELLO must declare the same
@@ -268,9 +273,10 @@ class CorrectionServer:
         """Zero a leased range, in place: a new session (or a re-leased
         slot, the ATTACH frame) sees cold rows whatever a previous tenant
         left."""
-        rows = torch.zeros(self.slots, dtype=torch.bool)
+        rows = np.zeros(self.slots, bool)
         rows[lo:hi] = True
-        zero_cache_rows(self._cache, rows.to(self.device))
+        # on a sharded server, only on the shards that own the rows
+        self._eng.server.zero_rows(rows, self._cache)
         self._history[lo:hi] = 0
 
     # -- lease defrag ----------------------------------------------------------
@@ -299,8 +305,7 @@ class CorrectionServer:
         taken = set(order)
         perm = np.asarray(order + [r for r in range(self.slots)
                                    if r not in taken])
-        permute_cache_rows(self._cache,
-                           torch.as_tensor(perm, device=self.device))
+        mesh_mod.permute_rows(self._eng, self._cache, perm)
         self._history = self._history[perm]
         lo = 0
         for s in live:
@@ -642,7 +647,7 @@ class CorrectionServer:
                 ) -> None:
         """One masked catch-up over the union of the group's requests, then
         one reply per request (arrival order)."""
-        S, eng, dev = self.slots, self._eng, self.device
+        S, eng = self.slots, self._eng
         trig = np.zeros(S, bool)
         pos = np.zeros(S, np.int32)
         tvec = np.zeros(S, np.int32)
@@ -663,18 +668,16 @@ class CorrectionServer:
             # every input uploads before the first launch: the replay's one
             # sync is the copy of its results below
             backlog = eng._backlog(pos, tvec, trig, history=self._history)
-            rows = torch.as_tensor(np.concatenate(
-                [np.arange(s.lo, s.hi) for s, _, _ in group]), device=dev)
-            u_req = torch.as_tensor(np.concatenate(
-                [req.u for _, req, _ in group]), device=dev)
-            trig_req = torch.as_tensor(np.concatenate(
-                [req.triggered for _, req, _ in group]), device=dev)
+            rows_np = np.concatenate(
+                [np.arange(s.lo, s.hi) for s, _, _ in group])
+            u_np = np.concatenate([req.u for _, req, _ in group])
+            trig_np = np.concatenate([req.triggered for _, req, _ in group])
             v = eng._catchup_v(eng.params, self._cache, backlog)
-            # every reply's fhat from its own request's u and mask, one call
-            fhat = eng._fuse(u_req, v[rows], trig_req)
-            out = torch.cat((v, fhat)).cpu().numpy()
+            # every reply's fhat from its own request's u and mask, one
+            # call a lane
+            v_np, fhat_np = mesh_mod.fuse_rows(eng, v, rows_np, u_np,
+                                               trig_np)
         dt = time.monotonic() - t0
-        v_np, fhat_np = out[:S], out[S:]
         self.metrics.inc("replays")
         self.metrics.inc("requests", len(group))
         if len(group) > 1:

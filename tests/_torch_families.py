@@ -184,9 +184,9 @@ def routing_near_ties(model, tcfg, batch) -> int:
 
     def counting(p, x, **kw):
         seen.append(int((routing_margin(p, x, tcfg.top_k) <= TIE).sum()))
-        return tmoe.moe_apply(p, x, **kw)
+        return tmoe.moe_dispatch(p, x, **kw)
 
-    with mock.patch.object(base, "moe_apply", counting), torch.no_grad():
+    with mock.patch.object(base, "moe_dispatch", counting), torch.no_grad():
         tdeco.collab_forward(model, tcfg, to_device(batch, "cpu"))
     return sum(seen)
 

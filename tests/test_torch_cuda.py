@@ -1007,3 +1007,143 @@ def test_last_families_session_on_card_matches_cpu(cuda, arch):
     if not band.any():
         np.testing.assert_allclose(a["fhat"], b["fhat"], atol=1e-4, rtol=1e-4)
     assert (a["fhat"] <= a["u"]).all()
+
+
+# -- mesh-sharded serving and the EP dispatch on the card ----------------------
+
+def _mesh_engine(cuda, model, cfg, batch, shards, conf, capacity=None):
+    import dataclasses
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    from repro_torch.serving.mesh import MeshSpec
+    cfg = cfg.replace(monitor=dataclasses.replace(cfg.monitor, **conf))
+    mesh = None if shards is None else MeshSpec.parse(
+        f"data:{shards}").build([cuda] * shards)
+    return CollaborativeEngine(model, cfg, batch, 32, device=cuda,
+                               capacity=capacity, mesh=mesh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sync", "scan"])
+def test_sharded_engine_on_card_is_its_shards(cuda, mode):
+    """data:4 over the card four times: shard for shard bitwise four
+    unsharded engines of B/4 rows fed its streams, launches included;
+    data:1 bitwise the unsharded engine; the edge path's op check."""
+    from repro_torch.serving import mesh as mesh_mod
+    cfg, model, toks, conf = _async_case(cuda, B=8, S=16)
+    b = 2
+    plain = _mesh_engine(cuda, model, cfg, 8, None, conf)
+    d1 = _mesh_engine(cuda, model, cfg, 8, 1, conf)
+    d4 = _mesh_engine(cuda, model, cfg, 8, 4, conf)
+    smalls = [_mesh_engine(cuda, model, cfg, b, None, conf) for _ in range(4)]
+    for name, records in mesh_mod.edge_ops(d4).items():
+        mesh_mod.assert_collective_free(records, name)
+    keys = ("u", "fhat", "triggered") + (("served",) if mode == "scan"
+                                         else ())
+    r0 = plain.session(SessionConfig(mode=mode)).run(toks)
+    r1 = d1.session(SessionConfig(mode=mode, mesh="data:1")).run(toks)
+    kernels.reset_launch_counts()
+    r4 = d4.session(SessionConfig(mode=mode, mesh="data:4")).run(toks)
+    sharded = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    parts = [e.session(SessionConfig(mode=mode)).run(toks[i * b:(i + 1) * b])
+             for i, e in enumerate(smalls)]
+    assert kernels.launch_counts() == sharded
+    assert sharded["decode_attention"] > 0
+    for k in keys:
+        np.testing.assert_array_equal(r1[k], r0[k], err_msg=k)
+        np.testing.assert_array_equal(
+            r4[k], np.concatenate([p[k] for p in parts]), err_msg=k)
+    np.testing.assert_allclose(r4["u"], r0["u"], atol=2e-2)
+    if mode == "sync":
+        assert sharded["monitor_combine"] > 0
+        for sh, e in zip(d4.shards, smalls):
+            assert _caches_equal(sh.server.cache, e.server.cache)
+
+
+@pytest.mark.cuda
+def test_sharded_async_stream_on_card(cuda):
+    """The stream transport on a data:4 engine (all shards on the card):
+    u, triggers, fhat and server_pos at max_staleness 0 bitwise its sync
+    run."""
+    cfg, model, toks, conf = _async_case(cuda, B=8, S=16)
+    sync_eng = _mesh_engine(cuda, model, cfg, 8, 4, conf)
+    sync = sync_eng.session(SessionConfig(mesh="data:4")).run(toks)
+    eng = _mesh_engine(cuda, model, cfg, 8, 4, conf)
+    with eng.session(SessionConfig(mode="async", transport="stream",
+                                   max_staleness=0, mesh="data:4")) as s:
+        r = s.run(toks)
+    for k in ("u", "fhat", "triggered"):
+        np.testing.assert_array_equal(r[k], sync[k], err_msg=k)
+    np.testing.assert_array_equal(eng.server_pos, sync_eng.server_pos)
+
+
+@pytest.mark.cuda
+def test_sharded_server_on_card(cuda, tmp_path):
+    """A data:4 CorrectionServer at 8 slots (2 rows a shard) serving a
+    data:4 client of 8 streams in sync mode over the wire: bitwise the
+    data:4 sync engine."""
+    import threading
+    from repro_torch.serving import TransportSpec
+    from repro_torch.serving.mesh import MeshSpec
+    from repro_torch.serving.server import CorrectionServer
+    cfg, model, toks, conf = _async_case(cuda, B=8, S=16)
+    sync_eng = _mesh_engine(cuda, model, cfg, 8, 4, conf)
+    sync = sync_eng.session().run(toks)
+    srv = CorrectionServer(sync_eng.cfg, model, slots=8, max_len=32,
+                           uds=str(tmp_path / "s.sock"), device=cuda,
+                           mesh=MeshSpec.parse("data:4").build([cuda] * 4))
+    stop = threading.Event()
+    th = threading.Thread(target=srv.serve_forever, kwargs=dict(stop=stop),
+                          daemon=True)
+    th.start()
+    try:
+        eng = _mesh_engine(cuda, model, cfg, 8, 4, conf)
+        with eng.session(SessionConfig(mode="sync", transport=TransportSpec(
+                "wire", address=srv.address))) as s:
+            r = s.run(toks)
+    finally:
+        stop.set()
+        th.join(timeout=60)
+        srv.close()
+    for k in ("u", "fhat", "triggered"):
+        np.testing.assert_array_equal(r[k], sync[k], err_msg=k)
+    np.testing.assert_array_equal(eng.server_pos, sync_eng.server_pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_ep_dispatch_one_rank_nccl_is_moe_apply(cuda, arch):
+    """moe_dispatch(impl="ep") under a one-rank NCCL group and a (1, 1)
+    DeviceMesh at the SMOKE widths: bitwise moe_apply."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.nn import moe as tmoe
+    cfg = registry.get_smoke(arch)
+    gen = torch.Generator(cuda).manual_seed(0)
+    mod = tmoe.MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                   n_shared=cfg.n_shared_experts, dtype=torch.bfloat16,
+                   device=cuda)
+    mod.init_(gen)
+    x = torch.randn((4, 8, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        want, waux = tmoe.moe_apply(mod, x, **kw)
+        with shd.use_mesh(mesh):
+            got, aux = tmoe.moe_dispatch(tmoe.local_moe(mod, mesh), x,
+                                         impl="ep", **kw)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want) and torch.equal(aux, waux)

@@ -32,6 +32,8 @@ import repro_torch.launch.train, repro_torch.nn.moe
 import repro_torch.configs.qwen15_110b, repro_torch.configs.qwen15_32b
 import repro_torch.configs.qwen25_32b, repro_torch.configs.mixtral_8x22b
 import repro_torch.configs.deepseek_v3_671b
+import repro_torch.distributed, repro_torch.distributed.sharding
+import repro_torch.serving.mesh, repro_torch.launch.mesh
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)
@@ -195,3 +197,26 @@ def test_fleet_and_launchers_default_to_the_card(monkeypatch, entry):
                 model, None)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+def test_mesh_entry_points_refuse_a_host_without_enough_cards(monkeypatch):
+    """``shard_engine`` (and ``CollaborativeEngine(mesh=)``) with no
+    ``devices`` builds on the first cards: a host without enough raises,
+    and no shard is placed on the host on its own.  So do the production
+    meshes."""
+    from repro_torch.configs.paper_synthetic import SERVING
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.serving import mesh as mesh_mod
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    model = init_collab_lm(SERVING, torch.Generator().manual_seed(0), "cpu")
+    eng = CollaborativeEngine(model, SERVING, 4, 8, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="needs 2 devices, host has 0"):
+        mesh_mod.shard_engine(eng, "data:2")
+    assert eng.shards is None and eng.mesh_spec is None
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        CollaborativeEngine(model, SERVING, 4, 8, device="cpu",
+                            mesh="data:4")
+    with pytest.raises(ValueError, match="needs 512 devices"):
+        make_production_mesh(multi_pod=True)

@@ -12,8 +12,8 @@ f32 master within lr/10 after three steps).  Then the launchers as
 subprocesses with ``--device cpu``: ``launch.serve --engine step``,
 ``--engine collab --transport shm`` against ``launch.server --transport
 shm``, ``launch.fleet`` with a ``fleet:`` client, and ``launch.train``
-writing a checkpoint that the JAX package loads; the refusals of
-``--mesh``.
+writing a checkpoint that the JAX package loads; ``--mesh``: the
+production meshes' device-count refusal, and serving on virtual shards.
 """
 import os
 import signal
@@ -299,10 +299,18 @@ def test_train_launcher_checkpoint_loads_in_the_reference(tmp_path):
         np.testing.assert_array_equal(got[path], w, err_msg=path)
 
 
-def test_mesh_options_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        ttrain.main(["--arch", "granite-8b", "--mesh", "production",
-                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        tserve.main(["--arch", "granite-8b", "--engine", "collab",
-                     "--mesh", "data:2", "--device", "cpu"])
+def test_mesh_options_raise_naming_their_item(capsys):
+    """The production meshes need 256 and 512 devices: on this host the
+    train launcher raises the device-count ValueError, as the reference's
+    ``jax.make_mesh`` does.  ``launch.serve --mesh data:2`` serves the
+    collab engine on two virtual shards of the launcher's device."""
+    for mesh, n in (("production", 256), ("multipod", 512)):
+        with pytest.raises(ValueError, match=f"needs {n} devices"):
+            ttrain.main(["--arch", "granite-8b", "--mesh", mesh,
+                         "--device", "cpu"])
+    tserve.main(["--arch", "granite-8b", "--engine", "collab",
+                 "--mesh", "data:2", "--device", "cpu", "--batch", "2",
+                 "--tokens", "4"])
+    out = capsys.readouterr().out
+    assert "mesh data:2: 2 virtual devices on cpu" in out
+    assert "sync collab engine: 4 steps x batch 2" in out

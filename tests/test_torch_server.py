@@ -21,6 +21,7 @@ checkpoint written by the JAX package.
 import os
 import socket
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -620,20 +621,36 @@ def test_drain_goaway_and_refusal():
 
 @pytest.mark.parametrize("what,item", [("shm", "item 6"), ("mesh", "item 8")])
 def test_unported_server_options_raise(what, item):
-    """``mesh`` is not ported and raises, naming its ROADMAP item, in the
-    server and its launcher.  ``shm`` (item 6) is ported: the launcher's
-    ``--transport shm`` server offers a shared-memory arena at HELLO, a
-    client maps it, and no arena file is left behind."""
+    """Both options are ported now.  ``mesh`` (item 8): the server never
+    places shards virtually on its own (a spec asks for cards, and this
+    host has none), while its launcher does, printing so, and serves.
+    ``shm`` (item 6): the launcher's ``--transport shm`` server offers a
+    shared-memory arena at HELLO, a client maps it, and no arena file is
+    left behind."""
     from repro_torch.serving import shm
     cfg, model, _ = _setup()
     if what == "mesh":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        with pytest.raises(ValueError, match="needs 2 devices"):
             CorrectionServer(cfg, model, uds=_uds_path(what), device="cpu",
                              mesh="data:2")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            launcher.main(["--arch", "paper-synthetic-serving", "--device",
-                           "cpu", "--uds", _uds_path("cli"), "--mesh",
-                           "data:2"])
+        uds = _uds_path("climesh")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.server", "--arch",
+             "paper-synthetic-serving", "--device", "cpu", "--uds", uds,
+             "--mesh", "data:2", "--ready-file", uds + ".ready"],
+            env={**os.environ, "PYTHONPATH": os.path.join(
+                os.path.dirname(__file__), "..", "src")},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            deadline = time.monotonic() + SPAWN_DEADLINE_S
+            while not os.path.exists(uds + ".ready"):
+                assert proc.poll() is None and time.monotonic() < deadline
+                time.sleep(0.05)
+        finally:
+            proc.terminate()
+            out = proc.communicate(timeout=60)[0]
+        assert "2 virtual devices on cpu" in out, out
+        assert "mesh=data:2 listening" in out, out
         return
     uds = _uds_path("cli")
     ready = uds + ".ready"

@@ -228,12 +228,14 @@ def test_churn_survivors_exact_and_attach_bit_cold():
 
 def test_session_config_refuses_unported_paths():
     """What the port does not serve yet raises, naming its ROADMAP item:
-    mesh sharding and the recompile guard (item 8).  The wire, shm and
-    fleet transports are ported: a spec without an address, or with a
-    simulated latency, is refused as the reference refuses it, and the
-    addresses parse (``fleet:`` is shorthand for wire through a router)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        SessionConfig(mesh="data:8")
+    the recompile guard (item 10).  Mesh sharding (item 8) is ported: the
+    spec parses, and a session never places shards virtually on its own
+    (this host has no card).  The wire, shm and fleet transports are
+    ported: a spec without an address, or with a simulated latency, is
+    refused as the reference refuses it, and the addresses parse
+    (``fleet:`` is shorthand for wire through a router)."""
+    from repro_torch.serving.mesh import MeshSpec
+    assert SessionConfig(mesh="data:8").mesh == MeshSpec.parse("data:8")
     for kind in ("wire", "shm"):
         with pytest.raises(ValueError, match=f"{kind} transport needs an "
                            "address"):
@@ -249,7 +251,10 @@ def test_session_config_refuses_unported_paths():
     spec = TransportSpec("shm", address="fleet:/tmp/router.sock")
     assert (spec.kind, spec.address) == ("shm", "fleet:/tmp/router.sock")
     tcfg, _, model = _granite()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu",
+                            config=SessionConfig(mesh="data:2")).step([1, 2])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu"
                             ).arm_recompile_guard()
     sess = MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu",
