@@ -25,7 +25,8 @@ Phases, each printing its own lines:
 4. serve   -- MonitorSession over a full-width collaborative model
               (random weights from --seed) in sync and in scan mode, with
               a threshold calibrated to the paper's trigger rate: granite-8b
-              (36 layers), then zamba2-7b (all 81 layers); checks the
+              (36 layers), then zamba2-7b (all 81 layers), 32 steps
+              each (STEPS); checks the
               protocol's invariants, counts each kernel's launches in that
               run, prints tokens/s, ms per step and peak memory.
 5. train   -- train_collab_lm at full width, B=2 x S=4096, four AdamW
@@ -60,7 +61,7 @@ Phases, each printing its own lines:
               every logit is finite; prefill and generate tokens/s, ms per
               step, peak memory.
 8. async   -- MonitorSession in async mode, after the serve phases:
-              granite-8b (36 layers, 24 of the serve cell's 64 steps) under the
+              granite-8b (36 layers, 24 steps) under the
               stream transport (a CUDA side stream) at max_staleness 0
               and 2, thread at 2, mock_remote at 4 (20-ms simulated round
               trip) and inproc at 0, each against the phase's own sync run
@@ -77,11 +78,11 @@ Phases, each printing its own lines:
               u bitwise, fhat <= u), FixedPolicy bitwise no policy; a traced
               sync and async run (bitwise untraced, the Chrome export
               validates, the span breakdown); the three-rung cascade over
-              two engines.  zamba2-7b (81 layers, 8 of the 64 steps):
+              two engines.  zamba2-7b (81 layers, 8 steps):
               one stream run at max_staleness 2 with the same checks.
               Per run: tokens/s, ms/step, stall, overlap ratio, peak
               memory.
-9. serve-wire -- the serve cell (granite-8b, 36 layers; 32 of its 64
+9. serve-wire -- the serve cell (granite-8b, 36 layers; 24 of its 64
               steps) with the server
               half in a second process: a CorrectionServer at 16 slots
               started with multiprocessing's spawn, its weights from the
@@ -99,7 +100,7 @@ Phases, each printing its own lines:
               process's peak memory, the card's busy share (nvidia-smi's
               utilization.gpu).  Then ``python -m repro_torch.launch.server``
               itself at SMOKE size and a wire session against it.
-10. fleet-shm -- the serve cell (granite-8b, 36 layers, 64 steps) with
+10. fleet-shm -- the serve cell (granite-8b, 36 layers, 32 steps) with
               every server at slots == B: a CorrectionServer(shm=True)
               child, shm at max_staleness 0 and 2 and a wire session
               against it at 0 (u, triggers, server_pos, bytes bitwise the
@@ -122,7 +123,8 @@ Phases, each printing its own lines:
               layers), serve-moe (mixtral-8x22b FULL widths, 8 of 56
               layers) and serve-mla (deepseek-v3 FULL widths, 3 dense + 1
               MoE layer of 61, no MTP head), each as phase 4 (sync and
-              scan, the same gates and launch counts); the MoE two also
+              scan, the same gates and launch counts); the MoE
+              two also
               run sync twice (bitwise) and hold their MoE dispatch bitwise
               across runs and per-row routing equal to batched.  After
               the train phase: train-moe (mixtral, 1 layer) and train-mla
@@ -139,7 +141,8 @@ Phases, each printing its own lines:
               slots == B in a thread, bitwise the same steps' sync run)
               and serve-xlstm (xlstm-350m FULL, 24 layers: no attention
               kernel in the server, the edge's decode and the combine),
-              each as phase 4.  After 11's train cells: train-vlm (one
+              each as phase 4.  After 11's train cells:
+              train-vlm (one
               whole super-block, 5 self blocks and the cross block, with
               (2, 1601, 4096) image rows), train-audio (all 48 layers,
               B=2 x S=4096 x K=4), 4 steps each, and train-xlstm (all 24
@@ -151,7 +154,7 @@ Phases, each printing its own lines:
               musicgen's (2, 4096, 32, 64).
 13. mesh    -- right after phase 4's granite-8b cell, on its model,
               tokens, operating point and runs: mesh-sharded serving
-              (serving/mesh.py) of granite-8b FULL (36 layers), B = 8, 64
+              (serving/mesh.py) of granite-8b FULL (36 layers), B = 8, 32
               steps, sync and scan: a fresh unsharded engine bitwise the
               serve cell's runs, timed beside the sharded ones in the same
               loop; data:1 on the card bitwise the unsharded run; data:4 over the card four times bitwise,
@@ -163,20 +166,36 @@ Phases, each printing its own lines:
               check.  The phase's launches in the kernels line are the
               sharded runs' (data:4, data:8, the data:4 server); the
               comparison runs print theirs apart.  Then data:8 at B = 64
-              for 16 steps; a
+              for 8 steps; a
               CorrectionServer(mesh="data:4") of 16 slots serving a data:2
               wire session for 8 steps with one defrag across shards,
               held to the unsharded server and bitwise to the data:2 sync
               engine; and moe_dispatch(impl="ep") under a one-rank NCCL
               group at mixtral-8x22b's and deepseek-v3's full layer
               widths, bitwise moe_apply.
+14. mesh-train -- after phase 5's train cells: launch/steps.py's train
+              step on a (data 1, model 1) DeviceMesh over a one-rank NCCL
+              group (DTensor parameters, placed by the partition rules as
+              they are drawn, moments and batch placed so too),
+              granite-8b at the train cell's 8 layers
+              (3 steps) and zamba2-7b at the hybrid's 13 (2 steps), B = 2
+              x S = 4096, each beside the unplaced step from the same
+              seed: every step's loss and grad norm bitwise (else the gap
+              is printed and held to 2e-2), flash_attention and ssd_scan
+              launches equal, ms/step of both.  Two
+              subprocesses run the dry run (python -m
+              repro_torch.launch.dryrun) of granite-8b and deepseek-v3
+              train_4k on the production mesh over fake tensors: their
+              roofline rows are computed from counts over the H100 SXM's
+              peaks, not measured; they start before phase 5's train
+              cells, whose card is busy while the host waits.
 
 --profile adds torch.profiler breakdowns of one sync and one scan run, of
 one train step per model, of a train_paper step and of a generate step
 per model, and the CUDA stream ids of the serve kernels in a short async
 stream run per model (the phases run in the order 1-3, 4's granite-8b
 cell, 13, 4's zamba2-7b cell, 8, 9, 10, 11's and 12's serve cells, 5,
-11's and 12's train cells, 6, 7).
+14, 11's and 12's train cells, 6, 7).
 Then
 one JSON line of the kernels, the
 card's name and power limit, and a last line {"ok": true, "device":
@@ -191,6 +210,7 @@ from __future__ import annotations
 import argparse
 import copy
 import gc
+import os
 import json
 import math
 import re
@@ -210,7 +230,10 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 TOL_E2E = {"bfloat16": 2e-2, "float32": 1e-4}  # after a whole tower
 # the serve cell: 8 streams, a 512-token cache, 64 monitored tokens each;
 # the profile covers the first 8 steps (the profiler's per-event cost)
-BATCH, MAX_LEN, STEPS, PROFILE_STEPS = 8, 512, 64, 8
+# the serve cells, the mesh phase (on the granite cell's tokens) and
+# fleet-shm serve 32 tokens a stream: 64 until phase 14 took the script
+# to 1143-1176 s of its 1200 on the H100
+BATCH, MAX_LEN, STEPS, PROFILE_STEPS = 8, 512, 32, 8
 # the train cell: 2 streams of 4096 tokens (the reference's train_4k
 # sequence length), 4 AdamW steps, steps 2-4 timed.  Depth is cut to 8 of
 # 36 server layers: a trained parameter costs 16 bytes (bf16 weight and
@@ -1746,11 +1769,11 @@ POLICY_TARGET = 0.05
 # the side-stream witnesses: the device work queued on the worker's stream
 # before a dispatch, and the profiled steps of the full-width session
 WITNESS_SLEEP_S, WITNESS_STEPS = 1.0, 8
-# zamba2's async run (and its own sync run) serves 8 of the serve cell's
-# 64 steps: a zamba2 sync step costs ~3x granite's, and chip_smoke keeps
-# within its time budget with the serve-wire phase (32 steps before it,
-# 16 before the last three families' cells).  granite's async runs serve
-# 24 of the 64 (64 before the fleet-shm phase: on the H100 that phase
+# zamba2's async run (and its own sync run) serves 8 steps: a zamba2 sync
+# step costs ~3x granite's, and chip_smoke keeps within its time budget
+# with the serve-wire phase (24 steps before it, 16 before the last three
+# families' cells).  granite's async runs serve 24 (64 before the
+# fleet-shm phase: on the H100 that phase
 # takes ~150 s, and the granite async runs took ~270 s at 64 steps; 32
 # before the last three families' cells, with which the whole script took
 # 945.4 s on the H100)
@@ -2197,8 +2220,8 @@ def _dev_us(event) -> float:
 SERVER_SLOTS = 16
 WIRE_STALENESS = (0, 2)
 # the serve-wire phase's steps: 32 of the serve cell's 64 since the mesh
-# phase came in (the script's time limit)
-WIRE_STEPS = 32
+# phase came in, 24 since the mesh-train phase (the script's time limit)
+WIRE_STEPS = 24
 WIRE_SMOKE_BATCH, WIRE_SMOKE_STEPS = 4, 16
 SUN_PATH_MAX = 100  # a Unix socket's path must fit sockaddr_un (108 bytes)
 
@@ -3068,9 +3091,13 @@ def launcher_smoke(dev: str) -> None:
         wait=False, extra_args=("--transport", "shm", "--idle-exit-s", "60",
                                 "--device", dev))
     fleet_ready = os.path.join(tmp, "fleet.ready")
+    # a heartbeat must outlast the longest replay (serving/fleet.py); on a
+    # host busy with the other launchers a replay's p99 reached 4.8 s of
+    # the default 5, and each reaped server's respawn replays again
     fleet = start("fleet", "--arch", "granite-8b", "--n-servers", "2",
                   "--slots", "4", "--max-len", "80", "--root", tmp,
-                  "--ready-file", fleet_ready, "--log-interval-s", "600")
+                  "--ready-file", fleet_ready, "--log-interval-s", "600",
+                  "--heartbeat-timeout-s", "30")
     step = start("serve", "--arch", "granite-8b", "--engine", "step")
     trains = {arch: start("train", "--arch", arch, "--smoke", "--steps",
                           str(LAUNCHER_TRAIN_STEPS), "--batch", "2",
@@ -3646,7 +3673,7 @@ def phase_last_train(torch, dev, args) -> dict:
 
 # ---------------------------------------------------------------- phase 13
 MESH_SHARDS = 4          # data:4 over the one card
-MESH_WIDE = (64, 16)     # the data:8 run: B, steps
+MESH_WIDE = (64, 8)      # the data:8 run: B, steps (16 before mesh-train)
 MESH_SERVER = (16, 8)    # the sharded server: slots, steps of session B
 MESH_EP_TOKENS = (8, 16)  # the EP layer's tokens: B, S
 
@@ -3964,6 +3991,152 @@ def phase_mesh(torch, dev, args, kept) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 14
+# the mesh train step at world 1: granite-8b at the train cell's 8 layers
+# (3 steps) and zamba2-7b at the hybrid train cell's 13 (2 steps), B = 2
+# x S = 4096, each beside the unsharded step from the same seed
+MESH_TRAIN_STEPS = {"dense": 3, "hybrid": 2}
+DRYRUN_PAIRS = (("granite-8b", "train_4k"), ("deepseek-v3-671b", "train_4k"))
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_children():
+    """The dry run of each DRYRUN_PAIRS entry, as ``python -m
+    repro_torch.launch.dryrun`` subprocesses (the fake process group of
+    256 ranks must be a process's default group), started together, each
+    writing its output to a file (read by ``phase_mesh_train``)."""
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "2"
+    out = []
+    for arch, shape in DRYRUN_PAIRS:
+        log = tempfile.TemporaryFile(mode="w+")
+        out.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape], env=env, stdout=log,
+            stderr=subprocess.STDOUT, text=True)))
+    return out
+
+
+def _mesh_train_run(torch, dev, args, cfg, steps: int, dmesh):
+    """``steps`` AdamW steps of ``launch.steps.make_train_step`` from the
+    seed's weights, on ``dmesh`` (placed as they are drawn, as
+    ``launch.train`` places them: ``init_collab_lm(...,
+    device_mesh=)``) or unplaced: per-step (loss, grad_norm) tensors,
+    ms/step over steps 2.., and the train kernels' launches."""
+    from repro_torch import kernels
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training.loop import to_device, trainable
+    from repro_torch.training.optimizer import AdamW, keeps_masters
+    model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(args.seed),
+                           dev, device_mesh=dmesh)
+    pls = None if dmesh is None else shd.opt_placements(model, dmesh,
+                                                        zero1=cfg.zero1)
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(trainable(model), masters=keeps_masters(cfg),
+                     placements=pls)
+    step = make_train_step(cfg, opt)
+    batches = lm_batches(args.seed, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hist, marks = [], []
+    for _ in range(steps):
+        b = to_device(next(batches), dev)
+        if dmesh is not None:
+            b = shd.distribute_batch(b, dmesh)
+        m = step(model, state, b)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        hist.append((m["loss"].detach().clone(),
+                     m["grad_norm"].detach().clone()))
+    counts = kernels.launch_counts()
+    ms = (marks[-1] - marks[0]) / (steps - 1) * 1e3
+    del model, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist, ms, counts
+
+
+def phase_mesh_train(torch, dev, args, children) -> dict:
+    """The train step across a DeviceMesh on the card: a (data 1, model 1)
+    mesh over a one-rank NCCL group, each step's loss and grad norm held
+    bitwise to the unplaced step from the same seed (or the gap printed
+    and held to 2e-2), flash_attention and ssd_scan launches equal; then
+    the dry run's roofline rows from ``children`` (``dryrun_children``,
+    started before phase 5's device-bound train cells, so the host's
+    counting overlaps them).  Returns the placed runs' launches."""
+    import socket as socket_mod
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import granite_8b, zamba2_7b
+    with socket_mod.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cuda = torch.device(dev).type == "cuda"
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}",
+        world_size=1, rank=0, **({"device_id": torch.device(dev)}
+                                 if cuda else {}))
+    total = dict.fromkeys(TRAIN_KERNELS, 0)
+    try:
+        dmesh = init_device_mesh(torch.device(dev).type, (1, 1),
+                                 mesh_dim_names=("data", "model"))
+        for cfg in (granite_8b.FULL.replace(n_layers=TRAIN_LAYERS),
+                    zamba2_7b.FULL.replace(n_layers=HYBRID_TRAIN_LAYERS)):
+            steps = MESH_TRAIN_STEPS[cfg.family]
+            want, ms0, c0 = _mesh_train_run(torch, dev, args, cfg, steps,
+                                            None)
+            got, ms1, c1 = _mesh_train_run(torch, dev, args, cfg, steps,
+                                           dmesh)
+            gap = max(max(abs(float(a) - float(b)) for a, b in zip(g, w))
+                      for g, w in zip(got, want))
+            same = all(torch.equal(a, b) for g, w in zip(got, want)
+                       for a, b in zip(g, w))
+            for i, ((l1, g1), (l0, g0)) in enumerate(zip(got, want)):
+                print(f"[mesh-train] {cfg.name} step {i + 1}: loss "
+                      f"{float(l1):.6f} (unplaced {float(l0):.6f}) grad_norm "
+                      f"{float(g1):.6f} (unplaced {float(g0):.6f})")
+            print(f"[mesh-train] {cfg.name} {cfg.n_layers} layers, B="
+                  f"{TRAIN_BATCH} x S={TRAIN_SEQ}, {steps} steps on a "
+                  f"(data 1, model 1) DeviceMesh (one NCCL rank): "
+                  f"{'bitwise the unplaced step' if same else f'largest gap {gap:.3e}'}"
+                  f"; {ms1:.1f} ms/step placed against {ms0:.1f} unplaced "
+                  f"(steps 2-{steps}); launches {c1} against {c0}")
+            check(same or gap <= 2e-2,
+                  f"{cfg.name} mesh step within 2e-2 of the unplaced step")
+            for name in TRAIN_KERNELS:
+                check(c1[name] == c0[name],
+                      f"{cfg.name} {name} launches {c1[name]} == {c0[name]}")
+                total[name] += c1[name]
+            check(c1["flash_attention"] > 0, f"{cfg.name} flash launched")
+    finally:
+        dist.destroy_process_group()
+    for arch, shape, log, child in children:
+        try:
+            child.wait(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        log.seek(0)
+        out = log.read()
+        log.close()
+        check(child.returncode == 0, f"dry run {arch} {shape}: {out[-2000:]}")
+        for line in out.splitlines():
+            if line.strip() and not line.startswith("[rank"):
+                print(f"[mesh-train] dry run: {line}")
+        print(f"[mesh-train] dry run {arch} {shape}: computed from counts "
+              f"over H100 SXM peaks, not measured")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4081,6 +4254,7 @@ def main(argv=None) -> int:
     for name in SERVE_KERNELS:
         counts[name] += run[name]
     took("serve-vlm, serve-audio, serve-xlstm")
+    children = dryrun_children()   # collected by phase 14
     for cfg, n_full, lr_witness in (
             (full.replace(n_layers=TRAIN_LAYERS), full.n_layers, True),
             (zfull.replace(n_layers=HYBRID_TRAIN_LAYERS), zfull.n_layers,
@@ -4091,6 +4265,12 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     took("train")
+    run = phase_mesh_train(torch, dev, args, children)
+    for name in TRAIN_KERNELS:
+        counts[name] += run[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    took("mesh-train")
     from repro_torch.configs import deepseek_v3_671b, mixtral_8x22b
     for label, cfg, n_full in (
             ("train-moe", mixtral_8x22b.FULL.replace(n_layers=1),

@@ -17,7 +17,10 @@ The paper-scale ``init_paper_decomposition`` tree (``v/l{i}/{w,b}``,
 ``a``, ``raw_t``, ``u_net/...``) crosses with ``paper_from_numpy`` /
 ``paper_to_numpy``; ``training/checkpoint.py`` writes and reads both
 layouts, optimizer moments included (``moments_to_numpy`` /
-``load_moments``).
+``load_moments``).  A model placed on a DeviceMesh dumps whole leaves,
+one at a time: every rank joins each leaf's gather
+(``distributed.sharding.whole``), and rank 0 alone keeps the leaf on the
+host; the other ranks get empty leaves (``_host``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.decomposition import CollabLM, PaperDecomposition
+from repro_torch.distributed.sharding import (distribute_collab,
+                                              is_dtensor, whole)
 
 
 def _as_tensor(arr) -> torch.Tensor:
@@ -95,10 +100,15 @@ def _index(tree, li: int, n: int, where: str):
 
 
 def collab_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
-                      device) -> CollabLM:
-    """The reference's ``init_collab_lm`` tree -> ``CollabLM`` on ``device``."""
+                      device, device_mesh=None) -> CollabLM:
+    """The reference's ``init_collab_lm`` tree -> ``CollabLM`` on ``device``;
+    with a ``device_mesh``, every parameter then placed on it by the
+    partition rules (``distributed.sharding.distribute_collab``: each rank
+    keeps its block of the same whole leaves)."""
     model = CollabLM(cfg, device=device)
     _load(model, tree, "")
+    if device_mesh is not None:
+        distribute_collab(model, device_mesh)
     return model
 
 
@@ -195,6 +205,16 @@ def _stack(layers):
     return np.stack(layers)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """One leaf as f32 numpy.  A DTensor is gathered whole, which every
+    rank joins; rank 0 keeps it and the other ranks get an empty array."""
+    if is_dtensor(t):
+        t = whole(t.detach())
+        if torch.distributed.get_rank() != 0:
+            return np.zeros((0,), np.float32)
+    return t.detach().float().cpu().numpy()
+
+
 def collab_to_numpy(model: CollabLM, state=None, *,
                     grads: bool = False) -> Dict[str, Any]:
     """``CollabLM`` -> the reference's ``init_collab_lm`` tree of f32 numpy
@@ -208,7 +228,7 @@ def collab_to_numpy(model: CollabLM, state=None, *,
         if t is None:
             raise ValueError("collab_to_numpy(grads=True) needs every "
                              "parameter's gradient")
-        return t.detach().float().cpu().numpy()
+        return _host(t)
 
     return _dump(model, leaf)
 
@@ -227,7 +247,7 @@ def moments_to_numpy(model: nn.Module, state) -> Dict[str, Any]:
         if values is None:
             return None
         by = _by_param(model, values)
-        return _dump(model, lambda p: by[id(p)].detach().float().cpu().numpy())
+        return _dump(model, lambda p: _host(by[id(p)]))
 
     return {"count": np.asarray(state.count, np.int32), "m": tree(state.m),
             "v": tree(state.v)}

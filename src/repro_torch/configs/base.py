@@ -14,6 +14,26 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the reference's input shapes (``configs/base.py``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}
 
 
 @dataclass(frozen=True)
@@ -39,10 +59,12 @@ class ArchConfig:
     """One backbone of any of the reference's families (dense, moe, vlm,
     audio, hybrid, ssm), field for field.
     Left out are the reference's XLA partitioner and scan knobs
-    (``decode_cache_shard``, ``moe_impl``, ``zero1``, ``seq_parallel``,
+    (``decode_cache_shard``, ``moe_impl``, ``seq_parallel``,
     ``prefill_kv_shard``, ``scan_unroll``): they have no meaning in an
     eager PyTorch program.  ``remat`` keeps its meaning: activation
-    checkpointing of each layer in the training forward."""
+    checkpointing of each layer in the training forward.  ``zero1`` splits
+    the optimizer moments over the data axes on a DeviceMesh
+    (``distributed.sharding.opt_specs``)."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -86,6 +108,7 @@ class ArchConfig:
     dtype: str = "bfloat16"          # activation/compute dtype
     param_dtype: str = "float32"     # parameter storage dtype
     remat: bool = True               # activation checkpointing per layer
+    zero1: bool = False              # optimizer moments split over data
     monitor: MonitorConfig = field(default_factory=MonitorConfig)
 
     @property

@@ -226,14 +226,24 @@ class CollabLM(nn.Module):
 
 
 def init_collab_lm(cfg: ArchConfig, gen: torch.Generator,
-                   device=None) -> CollabLM:
+                   device=None, device_mesh=None) -> CollabLM:
     """Random weights drawn from ``gen`` directly on ``device`` (``None``:
     the card), with the
     reference's distributions (the reference's ``jax.random`` draws differ:
     to compare the two, carry the reference's weights across with
-    ``repro_torch.bridge``)."""
-    model = CollabLM(cfg, device)
-    model.init_(gen, cfg)
+    ``repro_torch.bridge``).  With a ``device_mesh`` every parameter is
+    placed by the partition rules as it is drawn, and ``device`` holds
+    this rank's blocks and one whole leaf at a time
+    (``distributed.sharding.init_placed``): the weights are the unplaced
+    init's."""
+    if device_mesh is None:
+        model = CollabLM(cfg, device)
+        model.init_(gen, cfg)
+        return model
+    from repro_torch.distributed.sharding import init_placed
+    model = CollabLM(cfg, "meta")
+    init_placed(model, lambda: model.init_(gen, cfg), resolve_device(device),
+                device_mesh)
     return model
 
 

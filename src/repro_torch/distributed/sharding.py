@@ -432,3 +432,381 @@ def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Enter a tensor-parallel region (megatron's ``f``): the identity,
     whose backward sums the gradient over ``group``."""
     return _CopyTo.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# DTensor placement: the counterpart of the reference's ``jit(...,
+# in_shardings=...)``.  Parameters, optimizer moments and the batch become
+# ``torch.distributed.tensor.DTensor``s placed by the specs above; the
+# model code runs on them unchanged and DTensor's propagation inserts the
+# collectives, as GSPMD does for the reference.  Hand-written kernels run
+# in ``local_map`` regions (``kernels/ops.py``, ``nn/moe.py``).
+# ---------------------------------------------------------------------------
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``torch.distributed.tensor.DTensor`` (imports
+    the DTensor package only once one can exist)."""
+    if not isinstance(t, torch.Tensor) or type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def placements(spec: Spec, device_mesh) -> Tuple[Any, ...]:
+    """A spec -> the DTensor placements on ``device_mesh`` (one per mesh
+    dim): ``Shard(d)`` on each mesh dim that dim ``d`` names, Replicate
+    elsewhere.  A dim named by a tuple of axes takes one ``Shard(d)`` on
+    each of them; DTensor orders such shards by mesh dim, which is the
+    row-major order ``local_shard`` cuts in, so the tuple must name them
+    in mesh order."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(device_mesh.mesh_dim_names)
+    out: List[Any] = [Replicate()] * len(names)
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {axes} are not in the "
+                             f"mesh's order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec}: mesh dim {names[i]} "
+                                 f"named twice")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def _stacked_spec(specs, name: str) -> Spec:
+    """The spec of the parameter ``name`` (a module path, e.g.
+    ``server.blocks.3.attn.wq.w``) from the stacked tree of specs: its
+    reference path's spec without the leading layer axes (one per layer
+    index in the path)."""
+    node, n_layer = specs, 0
+    for part in name.split("."):
+        if part.isdigit():
+            n_layer += 1
+            continue
+        node = node[part]
+    return tuple(node)[n_layer:] if node else ()
+
+
+def named_specs(model: torch.nn.Module, mesh, *,
+                zero1: Optional[bool] = None) -> Dict[str, Spec]:
+    """Parameter name -> the spec of that (per-layer) parameter: the
+    partition rules' spec of its stacked leaf, layer axes dropped.  With
+    ``zero1`` given: the optimizer moments' specs (``opt_specs``), where
+    ZeRO-1's data split goes on the per-layer parameter's own first free
+    dim it divides (the reference's stacked moment may take the layer
+    axis instead; the bytes a device holds are the same)."""
+    specs = param_specs(model, mesh)
+    out = {name: _stacked_spec(specs, name)
+           for name, _ in model.named_parameters()}
+    if not zero1:
+        return out
+    daxes = data_axes(mesh)
+    dtotal = _data_total(mesh)
+    dname = daxes if len(daxes) > 1 else (daxes[0] if daxes else None)
+    if dname is None or dtotal == 1:
+        return out
+    for name, p in model.named_parameters():
+        s = list(out[name]) + [None] * (p.dim() - len(out[name]))
+        for ax, dim in enumerate(p.shape):
+            if s[ax] is None and dim % dtotal == 0 and dim >= dtotal:
+                s[ax] = dname
+                out[name] = tuple(s)
+                break
+    return out
+
+
+def set_param(model: torch.nn.Module, name: str, value) -> None:
+    """Replace the parameter ``name`` (a module path) of ``model``."""
+    owner, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(owner) if owner else model
+    mod._parameters[leaf] = value
+
+
+def opt_placements(model: torch.nn.Module, device_mesh, *,
+                   zero1: bool = False) -> List[Tuple]:
+    """The optimizer moments' placements (``opt_specs(zero1=zero1)``), in
+    ``model.parameters()`` order: what ``training.optimizer.AdamW.init``
+    takes as ``placements``."""
+    ospecs = named_specs(model, device_mesh, zero1=zero1)
+    return [placements(ospecs[name], device_mesh)
+            for name, _ in model.named_parameters()]
+
+
+def distribute_collab(model: torch.nn.Module, device_mesh, *,
+                      zero1: bool = False) -> List[Tuple]:
+    """Place every parameter of ``model`` on ``device_mesh`` by the
+    partition rules, in place: each becomes a ``DTensor`` parameter whose
+    local block is ``local_shard``'s (every rank holds the same whole
+    weights; no collective moves them).  Returns ``opt_placements``."""
+    from torch.distributed.tensor import distribute_tensor
+    pspecs = named_specs(model, device_mesh)
+    for name, p in list(model.named_parameters()):
+        if is_dtensor(p):
+            raise ValueError(f"{name} is placed already")
+        dt = distribute_tensor(p.data, device_mesh,
+                               placements(pspecs[name], device_mesh),
+                               src_data_rank=None)
+        set_param(model, name, torch.nn.Parameter(
+            dt, requires_grad=p.requires_grad))
+    return opt_placements(model, device_mesh, zero1=zero1)
+
+
+def init_placed(model: torch.nn.Module, init, device, device_mesh) -> None:
+    """Run ``init()`` (the in-place draws of ``model.init_``) on ``model``,
+    built on the meta device, and place each parameter on ``device_mesh``
+    as its draw lands: the in-place op runs on the whole leaf made on
+    ``device``, and a copy of this rank's block (``local_shard``) becomes
+    the DTensor parameter.  The draws are an unplaced init's with the same
+    generator, and a card holds its blocks and one whole leaf at a time.
+    Raises if the init leaves a parameter undrawn or draws one twice."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    metas = dict(model.named_parameters())    # alive, so ids stay theirs
+    names = {id(p): n for n, p in metas.items()}
+    pspecs = named_specs(model, device_mesh)
+    coords = mesh_coords(device_mesh)
+
+    class _Place(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(issubclass(t, DTensor) for t in types):
+                raise ValueError(f"init draws a placed parameter twice "
+                                 f"({func})")
+            name = names.get(id(args[0])) if args else None
+            if name is None or not func._schema.is_mutable:
+                return func(*args, **kwargs)
+            p = args[0]
+            whole = torch.empty(p.shape, dtype=p.dtype, device=device)
+            func(whole, *args[1:], **kwargs)
+            spec = pspecs[name]
+            block = local_shard(whole, spec, device_mesh, coords).clone()
+            del whole
+            set_param(model, name, torch.nn.Parameter(DTensor.from_local(
+                block, device_mesh, placements(spec, device_mesh),
+                run_check=False, shape=p.shape, stride=p.stride()),
+                requires_grad=p.requires_grad))
+            return p
+
+    with _Place():
+        init()
+    for name, p in model.named_parameters():
+        if not is_dtensor(p):
+            raise ValueError(f"init drew no value for {name}")
+
+
+def batch_placements(device_mesh, leaf_shape: Tuple[int, ...],
+                     batch_size: int) -> Tuple[Any, ...]:
+    """``batch_spec``'s placements: dim 0 over the data axes."""
+    return placements(batch_spec(device_mesh, leaf_shape, batch_size),
+                      device_mesh)
+
+
+def distribute_batch(batch: Mapping[str, torch.Tensor],
+                     device_mesh) -> Dict[str, Any]:
+    """Every leaf of a batch (the same global batch on every rank) as a
+    DTensor cut by ``batch_spec``: each rank keeps its data rows."""
+    from torch.distributed.tensor import distribute_tensor
+    out = {}
+    for k, v in batch.items():
+        pl = batch_placements(device_mesh, tuple(v.shape), v.shape[0]) \
+            if v.dim() else placements((), device_mesh)
+        out[k] = distribute_tensor(v, device_mesh, pl, src_data_rank=None)
+    return out
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor: a DTensor's ``full_tensor()`` (a collective every
+    rank must join), else ``t``."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def mesh_of(model: torch.nn.Module):
+    """The DeviceMesh ``model``'s parameters are placed on, or None."""
+    for p in model.parameters():
+        if is_dtensor(p):
+            return p.device_mesh
+    return None
+
+
+def split_heads(t: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    """(..., n_heads * head_dim) -> (..., n_heads, head_dim).  A DTensor
+    whose last dim is split over a mesh dim that the heads do not divide
+    (a rank would hold part of a head: granite's 8 kv heads of 128 at
+    model 16) is first made whole on that mesh dim, as GSPMD gathers it."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        last = t.dim() - 1
+        pls = list(t.placements)
+        bad = [i for i, pl in enumerate(pls)
+               if pl.is_shard() and pl.dim in (last, -1)
+               and n_heads % t.device_mesh.size(i)]
+        if bad:
+            for i in bad:
+                pls[i] = Replicate()
+            t = t.redistribute(t.device_mesh, pls)
+    return t.reshape(t.shape[:-1] + (n_heads, head_dim))
+
+
+def _no_partial(pls):
+    from torch.distributed.tensor import Replicate
+    return [Replicate() if pl.is_partial() else pl for pl in pls]
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., H, D) -> (..., H * D).  A DTensor goes through a ``local_map``
+    region placed as it is (heads split or whole), so the gradient comes
+    back in that placement: DTensor cannot view a gradient split on
+    ``H * D`` back into heads that do not divide the mesh dim."""
+    shape = t.shape[:-2] + (t.shape[-2] * t.shape[-1],)
+    if not is_dtensor(t):
+        return t.reshape(shape)
+    from torch.distributed.tensor.experimental import local_map
+    pls = _no_partial(t.placements)
+    return local_map(lambda x: x.reshape(x.shape[:-2] + (-1,)),
+                     out_placements=pls, in_placements=(pls,),
+                     device_mesh=t.device_mesh, redistribute_inputs=True)(t)
+
+
+def row_placements(t) -> List[Any]:
+    """Per mesh dim of the DTensor ``t``: ``Shard(0)`` where its rows
+    (dim 0, the batch) are split over a data axis, else Replicate: the
+    placement a region of each rank's own rows takes."""
+    from torch.distributed.tensor import Replicate, Shard
+    daxes = set(data_axes(t.device_mesh))
+    return [Shard(0) if n in daxes and pl == Shard(0) else Replicate()
+            for n, pl in zip(t.device_mesh.mesh_dim_names, t.placements)]
+
+
+def batch_local(fn, *ts: torch.Tensor):
+    """``fn(*ts)`` where ``fn`` works row by row on dim 0 of the first
+    tensor (the batch), the others shared by every row (weights) or split
+    alike.  DTensors run it in a ``local_map`` region: each keeps its
+    batch split over the data axes and is whole on every other mesh dim;
+    a tensor whole on a data axis the batch is split on gets its gradient
+    there as a partial sum (each data rank saw its own rows).  The output
+    is placed as the first input.  DTensor's own propagation would make
+    some such ops' gradients whole over the global batch (``gather``'s
+    backward allocates the global logits on every rank), and runs a loop
+    over time op by op."""
+    if not is_dtensor(ts[0]):
+        return fn(*ts)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ts[0].device_mesh
+    daxes = set(data_axes(mesh))
+    names = mesh.mesh_dim_names
+    ins = tuple(row_placements(t) for t in ts)
+    split = [any(p[i] == Shard(0) for p in ins) for i in range(len(names))]
+    grads = tuple([Partial() if split[i] and pl == Replicate() and
+                   names[i] in daxes else pl for i, pl in enumerate(p)]
+                  for p in ins)
+    return local_map(fn, out_placements=ins[0], in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*ts)
+
+
+def heads_local(fn, *ts: torch.Tensor, dim: int = 2):
+    """``fn(*ts)`` where ``fn`` works on each (batch row, head) alone: the
+    batch at dim 0 and the heads at ``dim`` of every tensor.  DTensors
+    run it in a ``local_map`` region placed as the first: its rows over
+    the data axes, its heads over ``model`` where every tensor's heads
+    divide it (else whole there); the output is placed so too.  DTensor's
+    propagation of a product that merges the batch and the heads into one
+    dim (an einsum's ``bmm``) searches its redistribute planner; the
+    region runs such products as local ops."""
+    if not is_dtensor(ts[0]):
+        return fn(*ts)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ts[0].device_mesh
+    names = list(mesh.mesh_dim_names)
+    pls = row_placements(ts[0])
+    if "model" in names:
+        i = names.index("model")
+        model = mesh.size(i)
+        pls[i] = Shard(dim) if all(t.shape[dim] % model == 0 for t in ts) \
+            else Replicate()
+    ins = tuple(list(pls) for _ in ts)
+    return local_map(fn, out_placements=list(pls), in_placements=ins,
+                     in_grad_placements=ins, device_mesh=mesh,
+                     redistribute_inputs=True)(*ts)
+
+
+def settle(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's partial sums made whole (an all-reduce over each mesh
+    dim they are partial on: megatron's ``g`` after a row-parallel
+    product), else ``t``.  The backward is the identity, as ``g``'s: the
+    gradient of a replicated sum is whole on every rank.  DTensor's own
+    redistribute would send the gradient back as partial sums, and the
+    weight gradient of the product before it would then be computed
+    whole on every rank; left partial, its propagation may instead
+    reduce-scatter a layer's output over the sequence, which a later
+    flattened product cannot take."""
+    if not is_dtensor(t) or not any(pl.is_partial() for pl in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = t.device_mesh
+    dims = [i for i, pl in enumerate(t.placements) if pl.is_partial()]
+    out = [Replicate() if pl.is_partial() else pl for pl in t.placements]
+
+    def body(x):
+        for i in dims:
+            x = reduce_from(x, mesh.get_group(i))
+        return x
+
+    return local_map(body, out_placements=out,
+                     in_placements=(list(t.placements),),
+                     in_grad_placements=(out,), device_mesh=mesh)(t)
+
+
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` (rows of a (V, d) table).  A DTensor table split on
+    its rows over ``model`` runs the vocab-parallel lookup in a
+    ``local_map`` region: each rank looks up the ids in its rows (zeros
+    for the rest), and one all-reduce over ``model`` (``settle``) makes
+    the result whole, as megatron's vocab-parallel embedding does.
+    DTensor's own strategy moves the table to a split of its columns
+    instead, and every product after it then runs on the whole width."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    names = list(mesh.mesh_dim_names)
+    daxes = set(data_axes(mesh))
+    if not is_dtensor(ids):     # a plain tensor counts as replicated
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * len(names),
+                                 run_check=False)
+    ids_pl = row_placements(ids)
+    tab_pl = [Shard(0) if n == "model" and pl == Shard(0) else Replicate()
+              for n, pl in zip(names, table.placements)]
+    tab_grad = [Partial() if ids_pl[i] == Shard(0) else tab_pl[i]
+                for i in range(len(names))]
+    split = "model" in names and tab_pl[names.index("model")] == Shard(0)
+    out = [ids_pl[i] if names[i] in daxes else
+           (Partial() if split and names[i] == "model" else Replicate())
+           for i in range(len(names))]
+    V = table.shape[0]
+
+    def body(tab, i):
+        if not split:
+            return tab[i]
+        lo = mesh.get_local_rank("model") * tab.shape[0]
+        mine = (i >= lo) & (i < lo + tab.shape[0])
+        rows = tab[torch.where(mine, i - lo, 0)]
+        return rows * mine[..., None].to(rows.dtype)
+
+    if V % max(mesh.size(names.index("model")) if "model" in names
+               else 1, 1):
+        raise ValueError(f"{V} rows do not split over model")
+    y = local_map(body, out_placements=out, in_placements=(tab_pl, ids_pl),
+                  in_grad_placements=(tab_grad, ids_pl), device_mesh=mesh,
+                  redistribute_inputs=True)(table, ids)
+    return settle(y)

@@ -3,12 +3,30 @@
 A CPU tensor goes to the kernel's plain PyTorch version.  A CUDA tensor
 goes to the hand-written kernel, which raises on anything it does not
 take: there is no global switch and no fallback.
+
+Two more kinds of operand, each found by one explicit check:
+
+- **Shape-only** (a ``FakeTensor`` or a meta tensor: the dry run,
+  ``launch/dryrun.py``).  The call goes to the kernel's shape function:
+  outputs of the kernel's shapes and dtypes, and the kernel's FLOPs and
+  bytes (the counts behind PERF.md's bounds) recorded into every active
+  ``shape_counters`` entry.  Nothing launches, and no plain version runs.
+  A fake CUDA tensor reports ``is_cuda``, so the check comes first.
+- **DTensor** (a step on a ``DeviceMesh``, ``distributed/sharding.py``).
+  ``flash_attention`` and ``ssd_scan`` run in a ``local_map`` region that
+  states their operands' placements: batch rows over the data axes, heads
+  over ``model`` where the heads divide it.  Inside, the kernel (or its
+  plain version, or its shape function) sees this rank's local tensors.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, List, Tuple
+
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.profiler import record_function
 
+from repro_torch.distributed.sharding import is_dtensor, row_placements
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_backward,
@@ -16,10 +34,85 @@ from repro_torch.kernels.flash_attention import (flash_attention_backward,
                                                  flash_attention_plain)
 from repro_torch.kernels.monitor_combine import (monitor_combine_cuda,
                                                  monitor_combine_plain)
-from repro_torch.kernels.ssm_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.ssm_scan import (ssd_flops, ssd_scan_cuda,
+                                          ssd_scan_plain)
+
+# The dry run's counters: each is a dict kernel name -> {"calls", "flops",
+# "bytes"} that the shape functions add to (``launch/dryrun.py`` pushes
+# one for the span of a step).
+shape_counters: List[Dict[str, Dict[str, float]]] = []
+
+
+def shape_only(t) -> bool:
+    """A fake or meta operand: it has a shape and no storage."""
+    return isinstance(t, FakeTensor) or t.device.type == "meta"
+
+
+def _record(name: str, flops: float, n_bytes: float) -> None:
+    for c in shape_counters:
+        e = c.setdefault(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
+        e["calls"] += 1
+        e["flops"] += float(flops)
+        e["bytes"] += float(n_bytes)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def attention_pairs(S: int, T: int, window: int) -> int:
+    """(row, col) pairs a causal (sliding-window) attention computes: row
+    r reads cols max(0, r - window + 1) .. min(r, T - 1)."""
+    full = S * (S + 1) // 2 if S <= T else T * (T + 1) // 2 + (S - T) * T
+    m = max(0, S - window) if window else 0
+    return full - m * (m + 1) // 2
+
+
+def decode_attention_shape(q, k_cache, v_cache, pos):
+    """decode_attention's output and counts (every cache slot read: the
+    positions are data)."""
+    B, Hq, D = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    o = torch.empty_like(q)
+    _record("decode_attention", 4.0 * B * Hq * C * D,
+            2 * _nbytes(q) + 2 * B * C * Hkv * D * k_cache.element_size()
+            + 4 * B)
+    return o
+
+
+def monitor_combine_shape(u, v, f):
+    n = u.shape[0]
+    out = torch.empty(2 * n + 2, dtype=torch.float32, device=u.device)
+    _record("monitor_combine", 8.0 * n, 3 * 4 * n + 2 * 4 * n + 8)
+    return out[:n], out[n:2 * n], out[2 * n:]
+
+
+def flash_attention_shape(q, k, v, *, window: int = 0):
+    """flash_attention's (o, lse) and counts."""
+    B, S, Hq, Dqk = q.shape
+    T, Dv = k.shape[1], v.shape[3]
+    o = torch.empty((B, S, Hq, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    _record("flash_attention",
+            2.0 * B * Hq * (Dqk + Dv) * attention_pairs(S, T, window),
+            _nbytes(q, k, v, o, lse))
+    return o, lse
+
+
+def ssd_scan_shape(xdt, la, Bm, Cm, *, chunk: int = 128):
+    """ssd_scan's (y, h_final) and counts."""
+    B, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(xdt)
+    h = torch.empty((B, H, P, N), dtype=torch.float32, device=xdt.device)
+    _record("ssd_scan", ssd_flops(B, S, H, chunk, P, N),
+            _nbytes(xdt, la, Bm, Cm, y, h))
+    return y, h
 
 
 def decode_attention(q, k_cache, v_cache, pos):
+    if shape_only(q):
+        return decode_attention_shape(q, k_cache, v_cache, pos)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos)
     return decode_attention_cuda(q, k_cache, v_cache, pos)
@@ -27,6 +120,8 @@ def decode_attention(q, k_cache, v_cache, pos):
 
 def monitor_combine(u, v, f, *, s: float, threshold: float = 0.0,
                     margin: float = 0.25):
+    if shape_only(u):
+        return monitor_combine_shape(u, v, f)
     if u.device.type == "cpu":
         return monitor_combine_plain(u, v, f, s=s, threshold=threshold,
                                      margin=margin)
@@ -35,8 +130,10 @@ def monitor_combine(u, v, f, *, s: float, threshold: float = 0.0,
 
 
 def flash_attention_fwd(q, k, v, *, window: int = 0):
-    """Causal (o, lse): the plain version for CPU tensors, the kernel for
-    CUDA."""
+    """Causal (o, lse): the shape function for shape-only tensors, the
+    plain version for CPU tensors, the kernel for CUDA."""
+    if shape_only(q):
+        return flash_attention_shape(q, k, v, window=window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window)
     return flash_attention_cuda(q, k, v, window=window)
@@ -67,13 +164,84 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, window: int = 0):
     """q: (B, S, Hq, D); k: (B, T, Hkv, D); v: (B, T, Hkv, Dv) -> (B, S,
-    Hq, Dv), causal, differentiable."""
+    Hq, Dv), causal, differentiable.  DTensor operands: ``_flash_region``."""
+    if is_dtensor(q):
+        return _flash_region(q, k, v, window)
     return FlashAttention.apply(q, k, v, window)
 
 
+# ---------------------------------------------------------------------------
+# local_map regions of a step on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def _on_model(pls: List[Any], mesh, placement) -> Tuple[Any, ...]:
+    names = list(mesh.mesh_dim_names)
+    out = list(pls)
+    if "model" in names:
+        out[names.index("model")] = placement
+    return tuple(out)
+
+
+def _model_size(mesh) -> int:
+    names = list(mesh.mesh_dim_names)
+    return mesh.size(names.index("model")) if "model" in names else 1
+
+
+def kv_heads_for(rank: int, model: int, Hq: int, Hkv: int) -> List[int]:
+    """The kv head of each of the q heads ``rank`` of ``model`` holds (q
+    heads split evenly over ``model``; q head h reads kv head
+    h // (Hq // Hkv))."""
+    n, G = Hq // model, Hq // Hkv
+    return [(rank * n + j) // G for j in range(n)]
+
+
+def _flash_region(q, k, v, window: int):
+    """flash_attention on a DeviceMesh: q's heads split over ``model``
+    where they divide it (else whole), batch rows over the data axes.  k
+    and v split alike when their heads divide ``model`` too (a rank's q
+    heads then read exactly its kv heads); otherwise they come whole (one
+    gather, as GSPMD gathers them) and each rank takes the kv heads its q
+    heads read: with granite's 8 kv heads at model 16, two ranks share
+    each kv head.  Their gradients are then partial sums over ``model``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    M = _model_size(mesh)
+    Hq, Hkv = q.shape[2], k.shape[2]
+    q_split = Hq % M == 0
+    kv_split = q_split and Hkv % M == 0
+    qp = _on_model(row_placements(q), mesh,
+                   Shard(2) if q_split else Replicate())
+    kvp = _on_model(row_placements(q), mesh,
+                    Shard(2) if kv_split else Replicate())
+    kv_grad = kvp if kv_split or not q_split else _on_model(
+        row_placements(q), mesh, Partial())
+
+    def body(ql, kl, vl):
+        if q_split and not kv_split:
+            heads = kv_heads_for(mesh.get_local_rank("model"), M, Hq, Hkv)
+            uniq = sorted(set(heads))
+            per = len(heads) // len(uniq)
+            if heads == [u for u in uniq for _ in range(per)]:
+                kl = kl.narrow(2, uniq[0], len(uniq)).contiguous()
+                vl = vl.narrow(2, uniq[0], len(uniq)).contiguous()
+            else:   # uneven groups: one kv head a q head
+                idx = torch.tensor(heads, device=kl.device)
+                kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return FlashAttention.apply(ql, kl, vl, window)
+
+    qp, kvp, kv_grad = list(qp), list(kvp), list(kv_grad)
+    return local_map(body, out_placements=qp, in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def ssd_scan_fwd(xdt, la, Bm, Cm, *, chunk: int = 128):
-    """(y, h_final): the plain version for CPU tensors, the kernel for
-    CUDA."""
+    """(y, h_final): the shape function for shape-only tensors, the plain
+    version for CPU tensors, the kernel for CUDA."""
+    if shape_only(xdt):
+        return ssd_scan_shape(xdt, la, Bm, Cm, chunk=chunk)
     if xdt.device.type == "cpu":
         return ssd_scan_plain(xdt, la, Bm, Cm, chunk=chunk)
     return ssd_scan_cuda(xdt, la, Bm, Cm, chunk=chunk)
@@ -115,6 +283,31 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128, h0=None):
     dtf = dt.float()
     xdt = x.float() * dtf[..., None]
     la = dtf * A.float()[None, None, :]
-    return SSDScan.apply(xdt.contiguous(), la.contiguous(),
-                         Bm.float().contiguous(), Cm.float().contiguous(),
-                         chunk)
+    args = (xdt.contiguous(), la.contiguous(), Bm.float().contiguous(),
+            Cm.float().contiguous())
+    if is_dtensor(xdt):
+        return _ssd_region(*args, chunk)
+    return SSDScan.apply(*args, chunk)
+
+
+def _ssd_region(xdt, la, Bm, Cm, chunk: int):
+    """ssd_scan on a DeviceMesh: heads over ``model`` where they divide it,
+    batch rows over the data axes; B and C whole on ``model`` (every head
+    reads them), so their gradients are partial sums over ``model``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xdt.device_mesh
+    split = xdt.shape[2] % _model_size(mesh) == 0
+    base = row_placements(xdt)
+    hp = _on_model(base, mesh, Shard(2) if split else Replicate())
+    bc = _on_model(base, mesh, Replicate())
+    bc_grad = _on_model(base, mesh, Partial()) if split else bc
+    hp, bc, bc_grad = list(hp), list(bc), list(bc_grad)
+    yp = hp
+    h_p = list(_on_model(base, mesh, Shard(1) if split else Replicate()))
+    return local_map(lambda a, b, c, d: SSDScan.apply(a, b, c, d, chunk),
+                     out_placements=(yp, h_p),
+                     in_placements=(hp, hp, bc, bc),
+                     in_grad_placements=(hp, hp, bc_grad, bc_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        xdt, la, Bm, Cm)

@@ -92,6 +92,21 @@ def ssd_plan(B: int, S: int, H: int, P: int, N: int, L: int) -> dict:
     return min(opts, key=lambda o: (o["cost"], -o["pt"]))
 
 
+def ssd_flops(B: int, S: int, H: int, L: int, P: int, N: int) -> float:
+    """Flops the SSD scan's inputs need in its lower-triangular form, chunk
+    by chunk: C B^T over the n(n+1)/2 pairs s <= t of a chunk of n rows,
+    once per (batch row, chunk), as B and C are shared by the heads; then
+    per (batch row, head, chunk) G @ xdt over the same pairs and the
+    carried state through C and the state update, n N P multiply-adds
+    each."""
+    full, tail = divmod(S, L)
+    total = 0.0
+    for n, count in ((L, full), (tail, 1 if tail else 0)):
+        total += count * (B * n * (n + 1) * N
+                          + B * H * (n * (n + 1) * P + 4.0 * n * N * P))
+    return total
+
+
 def ssd_scan_plain(xdt: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
                    Cm: torch.Tensor, *, chunk: int = 128
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

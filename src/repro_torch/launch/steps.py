@@ -16,23 +16,32 @@ update the caches in place (the returned dict still names them).  On the
 card the serve step's decodes reach the ``decode_attention`` kernel
 through ``decode_step``, its combine is one ``monitor_combine`` launch,
 and train/prefill reach ``flash_attention`` (and ``ssd_scan`` on the
-hybrid) through ``collab_forward``.  The reference's ``step_and_specs``
-(shape-only inputs for its dry run) belongs with the dry run, which is not
-ported (ROADMAP queue 1, item 9).
+hybrid) through ``collab_forward``.
+
+Each step runs unchanged on a model placed on a DeviceMesh
+(``distributed.sharding.distribute_collab``, DTensor parameters and
+batch).  ``step_and_specs`` builds such a model, its optimizer state and
+a batch from shapes alone, for the dry run (``launch/dryrun.py``): call
+it under a ``FakeTensorMode`` over a fake process group
+(``launch.mesh.device_mesh(..., backend="fake")``).  Its decode shapes
+(the serve step with caches split on the model axis) are ROADMAP queue
+1, item 9b.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import decomposition as deco
 from repro_torch.core.gating import masked_correction
+from repro_torch.distributed.sharding import mesh_of
 from repro_torch.kernels import ops
 from repro_torch.models import api as model_api
 from repro_torch.nn.module import linear, softplus
 from repro_torch.training.loop import make_train_step as _loop_train_step
+from repro_torch.training.loop import placed_region, trainable
 
 EDGE_CACHE_LEN = 1024  # edge ring-buffer budget (device memory constraint)
 
@@ -53,13 +62,17 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     """(model, batch) -> logits, u, the gated fhat and the trigger rate."""
     m = cfg.monitor
 
-    @torch.inference_mode()
     def prefill_step(model, batch) -> Dict[str, torch.Tensor]:
-        out = deco.collab_forward(model, cfg, batch)
-        fhat, mask = masked_correction(out["u"], out["corr"], m.threshold,
-                                       m.trigger_margin)
+        # DTensor's dispatch cannot run under inference mode
+        grad_off = torch.no_grad() if mesh_of(model) is not None \
+            else torch.inference_mode()
+        with grad_off, placed_region(model):
+            out = deco.collab_forward(model, cfg, batch)
+            fhat, mask = masked_correction(out["u"], out["corr"],
+                                           m.threshold, m.trigger_margin)
+            rate = mask.mean()
         return {"logits": out["logits"], "u": out["u"], "fhat": fhat,
-                "trigger_rate": mask.mean()}
+                "trigger_rate": rate}
 
     return prefill_step
 
@@ -109,3 +122,85 @@ def make_monitor_step(cfg: ArchConfig) -> Callable:
         return {"u": _edge_u(model, cfg, eh), "edge_cache": edge_cache}
 
     return monitor_step
+
+
+# ---------------------------------------------------------------------------
+# Shape-only inputs for each step (the dry run)
+# ---------------------------------------------------------------------------
+
+
+def placed_shapes(cfg: ArchConfig, device_mesh) -> deco.CollabLM:
+    """A ``CollabLM`` of ``cfg`` whose parameters are DTensors on
+    ``device_mesh`` placed by the partition rules, each holding this
+    rank's block as an uninitialised tensor on the mesh's device type
+    (under a ``FakeTensorMode``: fake, so a FULL config takes no memory).
+    The layout is built on the meta device first."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shd
+    model = deco.CollabLM(cfg, device="meta")
+    specs = shd.named_specs(model, device_mesh)
+    coords = shd.mesh_coords(device_mesh)
+    for name, p in list(model.named_parameters()):
+        block = shd.local_shard(p, specs[name], device_mesh, coords)
+        local = torch.empty(block.shape, dtype=p.dtype,
+                            device=device_mesh.device_type)
+        dt = DTensor.from_local(local, device_mesh,
+                                shd.placements(specs[name], device_mesh),
+                                run_check=False, shape=p.shape,
+                                stride=p.stride())
+        shd.set_param(model, name, torch.nn.Parameter(dt,
+                                                       requires_grad=False))
+    return model
+
+
+def batch_specs(cfg: ArchConfig, shape, device_mesh) -> Dict[str, object]:
+    """The model inputs of ``shape`` (a train or prefill ``ShapeConfig``)
+    as DTensors cut by ``batch_spec``, uninitialised (the reference's
+    ``input_specs``)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shd
+    B, S = shape.global_batch, shape.seq_len
+    tok = (B, S, cfg.n_codebooks) if cfg.family == "audio" else (B, S)
+    leaves = {"tokens": (tok, torch.int32)}
+    if cfg.family == "vlm":
+        leaves["image_embeds"] = ((B, cfg.n_image_tokens, cfg.d_model),
+                                  torch.float32)
+    if shape.kind == "train":
+        leaves["labels"] = (tok, torch.int32)
+        leaves["monitor_target"] = ((B, S), torch.float32)
+    coords = shd.mesh_coords(device_mesh)
+    out = {}
+    for key, (shp, dtype) in leaves.items():
+        spec = shd.batch_spec(device_mesh, shp, B)
+        whole = torch.empty(shp, device="meta")
+        block = shd.local_shard(whole, spec, device_mesh, coords)
+        local = torch.empty(block.shape, dtype=dtype,
+                            device=device_mesh.device_type)
+        out[key] = DTensor.from_local(local, device_mesh,
+                                      shd.placements(spec, device_mesh),
+                                      run_check=False, shape=shp,
+                                      stride=whole.stride())
+    return out
+
+
+def step_and_specs(cfg: ArchConfig, shape, device_mesh) -> Tuple[Callable,
+                                                                 Tuple]:
+    """(step_fn, args) of ``shape``'s kind on ``device_mesh`` from shapes
+    alone: the train step (AdamW at lr 3e-4, its moments placed by
+    ``opt_specs(zero1=cfg.zero1)``) over (model, opt_state, batch), or
+    the prefill step over (model, batch)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.training.optimizer import AdamW, keeps_masters
+    model = placed_shapes(cfg, device_mesh)
+    batch = batch_specs(cfg, shape, device_mesh)
+    if shape.kind == "train":
+        opt = AdamW(lr=3e-4)
+        state = opt.init(trainable(model), masters=keeps_masters(cfg),
+                         placements=shd.opt_placements(
+                             model, device_mesh, zero1=cfg.zero1))
+        return make_train_step(cfg, opt), (model, state, batch)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg), (model, batch)
+    raise NotImplementedError(
+        f"the {shape.name} dry run needs the serve step with its caches "
+        f"split on the model axis (ROADMAP queue 1, item 9b)")

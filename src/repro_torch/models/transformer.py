@@ -24,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import batch_local
 from repro_torch.kernels.decode_attention import pos_vector
 from repro_torch.models.base import (Block, block_decode, block_prefill, cdt,
                                      decode_capacity, init_kv_cache,
@@ -259,7 +260,8 @@ def forward(params: TransformerLM, cfg: ArchConfig, batch, *,
     mp = getattr(params, "mtp", None)
     if cfg.is_moe and cfg.mtp_depth and mp is not None and with_logits:
         # depth-1 MTP: h_t with emb(tok_{t+1}) predicts tok_{t+2} (ref :162)
-        emb_next = torch.roll(_embed_in(params, cfg, tokens), -1, 1)
+        emb_next = batch_local(lambda e: torch.roll(e, -1, 1),
+                               _embed_in(params, cfg, tokens))
         z = torch.cat([rmsnorm(mp.ln_h, h, cfg.norm_eps),
                        rmsnorm(mp.ln_e, emb_next, cfg.norm_eps)], dim=-1)
         z = linear(mp.proj, z, compute_dtype=cdt(cfg))

@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import (heads_local, merge_heads,
+                                              split_heads)
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.nn.module import Linear, linear
@@ -70,17 +72,16 @@ def gqa_prefill(p: GQA, x: torch.Tensor, rope, *, n_heads: int, n_kv: int,
     ``nn.rotary.rope_angles``.  Causal attention (sliding when
     ``window > 0``); returns y (B, S, d_model)."""
     B, S, _ = x.shape
-    q = linear(p.wq, x, compute_dtype=compute_dtype).reshape(B, S, n_heads,
-                                                              head_dim)
-    k = linear(p.wk, x, compute_dtype=compute_dtype).reshape(B, S, n_kv,
-                                                              head_dim)
-    v = linear(p.wv, x, compute_dtype=compute_dtype).reshape(B, S, n_kv,
-                                                              head_dim)
+    q = split_heads(linear(p.wq, x, compute_dtype=compute_dtype), n_heads,
+                    head_dim)
+    k = split_heads(linear(p.wk, x, compute_dtype=compute_dtype), n_kv,
+                    head_dim)
+    v = split_heads(linear(p.wv, x, compute_dtype=compute_dtype), n_kv,
+                    head_dim)
     q = rotate(q, *rope)
     k = rotate(k, *rope)
     o = ops.flash_attention(q, k, v, window=window)
-    return linear(p.wo, o.reshape(B, S, n_heads * head_dim),
-                  compute_dtype=compute_dtype)
+    return linear(p.wo, merge_heads(o), compute_dtype=compute_dtype)
 
 
 def write_rows(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor,
@@ -137,26 +138,30 @@ def cross_attn(p: GQA, x: torch.Tensor, kv_feats: torch.Tensor, *,
     softmax, probabilities rounded to v's dtype before the PV product,
     output in q's dtype.  Autograd differentiates it."""
     B, S, _ = x.shape
-    T = kv_feats.shape[1]
     G = n_heads // n_kv
-    q = linear(p.wq, x, compute_dtype=compute_dtype).reshape(
-        B, S, n_kv, G, head_dim)
-    k = linear(p.wk, kv_feats, compute_dtype=compute_dtype).reshape(
-        B, T, n_kv, head_dim)
-    v = linear(p.wv, kv_feats, compute_dtype=compute_dtype).reshape(
-        B, T, n_kv, head_dim)
-    kh = k.float().permute(0, 2, 3, 1)[:, :, None]     # (B, Hkv, 1, D, T)
-    vh = v.float().permute(0, 2, 1, 3)[:, :, None]     # (B, Hkv, 1, T, D)
+    q = split_heads(linear(p.wq, x, compute_dtype=compute_dtype), n_kv,
+                    G * head_dim).reshape(B, S, n_kv, G, head_dim)
+    k = split_heads(linear(p.wk, kv_feats, compute_dtype=compute_dtype),
+                    n_kv, head_dim)
+    v = split_heads(linear(p.wv, kv_feats, compute_dtype=compute_dtype),
+                    n_kv, head_dim)
     scale = 1.0 / math.sqrt(head_dim)
-    blocks = []
-    for q0 in range(0, S, CROSS_Q_BLOCK):
-        qb = q[:, q0:q0 + CROSS_Q_BLOCK].float().permute(0, 2, 3, 1, 4)
-        s = torch.matmul(qb, kh) * scale                # (B, Hkv, G, s, T)
-        prob = torch.softmax(s, dim=-1).to(v.dtype).float()
-        blocks.append(torch.matmul(prob, vh).to(q.dtype))
-    o = torch.cat(blocks, dim=3).permute(0, 3, 1, 2, 4)  # (B, S, Hkv, G, D)
-    return linear(p.wo, o.reshape(B, S, n_heads * head_dim),
-                  compute_dtype=compute_dtype)
+
+    def heads(q, k, v):
+        kh = k.float().permute(0, 2, 3, 1)[:, :, None]  # (B, Hkv, 1, D, T)
+        vh = v.float().permute(0, 2, 1, 3)[:, :, None]  # (B, Hkv, 1, T, D)
+        blocks = []
+        for q0 in range(0, S, CROSS_Q_BLOCK):
+            qb = q[:, q0:q0 + CROSS_Q_BLOCK].float().permute(0, 2, 3, 1, 4)
+            s = torch.matmul(qb, kh) * scale            # (B, Hkv, G, s, T)
+            prob = torch.softmax(s, dim=-1).to(v.dtype).float()
+            blocks.append(torch.matmul(prob, vh).to(q.dtype))
+        return torch.cat(blocks, dim=3).permute(0, 3, 1, 2, 4)
+
+    # on a DeviceMesh, a region of each rank's rows and kv heads
+    o = heads_local(heads, q, k, v)                     # (B, S, Hkv, G, D)
+    o = merge_heads(o.reshape(B, S, n_kv, G * head_dim))
+    return linear(p.wo, o, compute_dtype=compute_dtype)
 
 
 def cross_attn_decode(p: GQA, x: torch.Tensor, k_img: torch.Tensor,
@@ -206,7 +211,7 @@ def _mla_q(p: MLA, x, *, n_heads, qk_nope, qk_rope, rope, compute_dtype):
     """(q_nope, roped q_rope), heads on axis -2."""
     q = linear(p.wq_b, linear(p.wq_a, x, compute_dtype=compute_dtype),
                compute_dtype=compute_dtype)
-    q = q.reshape(q.shape[:-1] + (n_heads, qk_nope + qk_rope))
+    q = split_heads(q, n_heads, qk_nope + qk_rope)
     return q[..., :qk_nope], rotate(q[..., qk_nope:], *rope)
 
 
@@ -225,15 +230,14 @@ def mla_prefill(p: MLA, x: torch.Tensor, rope, *, n_heads: int,
     kv_a = linear(p.wkv_a, x, compute_dtype=compute_dtype)
     ckv, k_rope = kv_a[..., :-qk_rope], kv_a[..., -qk_rope:]
     k_rope = rotate(k_rope[:, :, None], *rope)              # (B, S, 1, r)
-    kv = linear(p.wkv_b, ckv, compute_dtype=compute_dtype).reshape(
-        B, S, n_heads, qk_nope + v_dim)
+    kv = split_heads(linear(p.wkv_b, ckv, compute_dtype=compute_dtype),
+                     n_heads, qk_nope + v_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([kv[..., :qk_nope],
                    k_rope.expand(B, S, n_heads, qk_rope)], dim=-1)
     v = kv[..., qk_nope:].contiguous()
     o = ops.flash_attention(q, k, v, window=window)
-    return linear(p.wo, o.reshape(B, S, n_heads * v_dim),
-                  compute_dtype=compute_dtype)
+    return linear(p.wo, merge_heads(o), compute_dtype=compute_dtype)
 
 
 def mla_decode(p: MLA, x: torch.Tensor, ckv: torch.Tensor,

@@ -1,10 +1,16 @@
 """Token embeddings and output heads (``nn/embedding.py``), with the audio
-family's per-codebook tables."""
+family's per-codebook tables.
+
+On a DeviceMesh a vocab-split table gives each rank the rows it holds
+(zeros elsewhere, a partial sum over ``model``) and one all-reduce makes
+it whole (``distributed.sharding.vocab_lookup``), so the residual stream
+stays whole on ``model``."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import is_dtensor, vocab_lookup
 from repro_torch.nn.module import normal_, param
 
 
@@ -20,7 +26,7 @@ class Embedding(nn.Module):
 
 def embed(p: Embedding, tokens: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return p.table.to(compute_dtype)[tokens.long()]
+    return vocab_lookup(p.table.to(compute_dtype), tokens.long())
 
 
 def unembed(p: Embedding, x: torch.Tensor,
@@ -48,9 +54,9 @@ def codebook_embed(p: CodebookEmbedding, tokens: torch.Tensor,
     added in the compute dtype in book order, as the reference adds."""
     tab = p.table.to(compute_dtype)
     tokens = tokens.long()
-    out = tab[0][tokens[..., 0]]
+    out = vocab_lookup(tab[0], tokens[..., 0])
     for k in range(1, tokens.shape[-1]):
-        out = out + tab[k][tokens[..., k]]
+        out = out + vocab_lookup(tab[k], tokens[..., k])
     return out
 
 
@@ -58,4 +64,8 @@ def codebook_unembed(p: CodebookEmbedding, x: torch.Tensor,
                      compute_dtype=torch.bfloat16) -> torch.Tensor:
     """(..., d) -> (..., K, V) per-codebook logits in f32."""
     tab = p.table.to(compute_dtype)
-    return torch.einsum("...d,kvd->...kv", x.to(compute_dtype), tab).float()
+    x = x.to(compute_dtype)
+    if is_dtensor(tab):   # a vocab split: one product a codebook
+        return torch.stack([(x @ tab[k].T).float()
+                            for k in range(tab.shape[0])], dim=-2)
+    return torch.einsum("...d,kvd->...kv", x, tab).float()

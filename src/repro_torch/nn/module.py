@@ -17,6 +17,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import settle
+
 
 def resolve_device(device) -> torch.device:
     """``None`` means the card.  Raises when a CUDA device is asked for and
@@ -82,6 +84,8 @@ def linear(p: Linear, x: torch.Tensor, *,
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
     y = x @ w
+    if type(y) is not torch.Tensor:   # a DTensor of partial sums
+        y = settle(y)
     if p.b is not None:
         y = y + p.b.to(y.dtype)
     return y

@@ -33,6 +33,7 @@ the reference's scatter-add over slots) in f32, one add a choice, where an
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -86,16 +87,27 @@ def expert_capacity(n_tokens: int, n_experts: int, top_k: int,
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
-def _route(p: MoE, xf: torch.Tensor, n_experts: int, top_k: int):
-    """Router in f32 -> (top_p, top_i (T, k), aux).  ``aux`` is the
-    Switch/GShard load-balance loss over all T tokens."""
+def _route_parts(p: MoE, xf: torch.Tensor, n_experts: int, top_k: int):
+    """Router in f32 -> (top_p, top_i (T, k), me, ce): the mean router
+    probability and the share of assignments of each expert."""
     T = xf.shape[0]
     probs = torch.softmax(linear(p.router, xf.float()), dim=-1)  # (T, E)
     top_p, top_i = torch.topk(probs, top_k, dim=-1)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     me = probs.mean(dim=0)
-    ce = torch.bincount(top_i.reshape(-1), minlength=n_experts).float() \
+    # a count per expert (``bincount`` with a static shape: the dry run's
+    # fake tensors cannot take an output sized by the data)
+    idx = top_i.reshape(-1).long()
+    ce = torch.zeros(n_experts, dtype=torch.int64, device=idx.device
+                     ).scatter_add_(0, idx, torch.ones_like(idx)).float() \
         / (T * top_k)
+    return top_p, top_i, me, ce
+
+
+def _route(p: MoE, xf: torch.Tensor, n_experts: int, top_k: int):
+    """Router in f32 -> (top_p, top_i (T, k), aux).  ``aux`` is the
+    Switch/GShard load-balance loss over all T tokens."""
+    top_p, top_i, me, ce = _route_parts(p, xf, n_experts, top_k)
     return top_p, top_i, n_experts * torch.sum(me * ce)
 
 
@@ -274,8 +286,11 @@ def moe_apply_ep(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     slice of every expert) and its shared-expert slice give a partial
     output, summed over ``model`` by one ``all_reduce`` (its backward is
     the identity, and the inputs' gradients are summed over ``model`` on
-    the way back, megatron's ``g`` and ``f``).  aux is the mean over the
-    data ranks.  With a model dim of 1 this is ``moe_apply`` bit for bit."""
+    the way back, megatron's ``g`` and ``f``).  aux is the load-balance
+    loss of the global batch (the mean router probability and assignment
+    share of each expert averaged over the data ranks first), the
+    reference's when every data rank holds as many tokens.  With a model
+    dim of 1 this is ``moe_apply`` bit for bit."""
     from repro_torch.distributed import sharding as shd
     mesh = shd.current_mesh()
     if mesh is None:
@@ -294,13 +309,15 @@ def moe_apply_ep(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     if T % groups:
         raise ValueError(f"{T} tokens do not split into {groups} groups")
     xf = x.reshape(T, d)
-    top_p, top_i, aux = _route(p, xf, n_experts, top_k)
+    top_p, top_i, me, ce = _route_parts(p, xf, n_experts, top_k)
     dsize = 1
     for ax in shd.data_axes(mesh):
         if sizes[ax] > 1:
-            aux = shd.reduce_from(aux, mesh.get_group(ax))
+            me = shd.reduce_from(me, mesh.get_group(ax))
+            ce = shd.reduce_from(ce, mesh.get_group(ax))
             dsize *= sizes[ax]
-    aux = aux / dsize if dsize > 1 else aux
+    aux = n_experts * torch.sum(me * ce) if dsize == 1 else \
+        n_experts * torch.sum((me / dsize) * (ce / dsize))
     expert_parallel = specs["w_gate"] and specs["w_gate"][0] == "model"
     e_sel = p.w_gate.shape[0]
     e_lo = coords["model"] * e_sel if expert_parallel else 0
@@ -335,9 +352,15 @@ def moe_dispatch(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``impl``: ``dense`` (``moe_apply``), ``ep`` (``moe_apply_ep``) or
     ``auto`` (ep when a DeviceMesh with a model dim wider than 1 is
-    current).  With no mesh current this is ``moe_apply`` exactly."""
+    current, or when ``x`` is a DTensor: ``_moe_region``).  With no mesh
+    current this is ``moe_apply`` exactly."""
     if impl not in ("dense", "ep", "auto"):
         raise ValueError(f"unknown MoE dispatch {impl!r}: dense, ep or auto")
+    from repro_torch.distributed.sharding import is_dtensor
+    if impl != "dense" and is_dtensor(x):
+        return _moe_region(p, x, n_experts=n_experts, top_k=top_k,
+                           capacity_factor=capacity_factor,
+                           compute_dtype=compute_dtype, groups=groups)
     if impl == "ep" or (impl == "auto" and ep_applicable(n_experts)):
         return moe_apply_ep(p, x, n_experts=n_experts, top_k=top_k,
                             capacity_factor=capacity_factor,
@@ -345,3 +368,46 @@ def moe_dispatch(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     return moe_apply(p, x, n_experts=n_experts, top_k=top_k,
                      capacity_factor=capacity_factor,
                      compute_dtype=compute_dtype, groups=groups)
+
+
+def _moe_region(p: MoE, x, *, n_experts: int, top_k: int,
+                capacity_factor: float, compute_dtype, groups: int):
+    """The MoE of a step on a DeviceMesh (DTensor parameters and tokens):
+    ``moe_apply_ep`` on this rank's local blocks, its tokens whole over
+    ``model`` and split over the data axes.  Each data rank routes its own
+    tokens at the capacity of its own token count: where the capacity
+    drops tokens this differs from the reference's program, which routes
+    the global batch (with a capacity that drops nothing the two agree).
+    The load-balance loss is the global batch's.  A
+    parameter whole on a data axis gets its gradient there as a partial
+    sum over the data ranks (each saw only its tokens)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.distributed import sharding as shd
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    data = set(shd.data_axes(mesh))
+
+    def local(t):
+        gp = [Partial() if n in data and isinstance(pl, Replicate) else pl
+              for n, pl in zip(names, t.placements)]
+        return t.to_local(grad_placements=gp)
+
+    def block(mod, names):
+        return SimpleNamespace(**{n: local(getattr(mod, n)) for n in names})
+
+    out = block(p, ("w_gate", "w_up", "w_down"))
+    out.router = SimpleNamespace(w=local(p.router.w), b=None if p.router.b
+                                 is None else local(p.router.b))
+    out.shared = None if p.shared is None else block(
+        p.shared, ("w_gate", "w_up", "w_down"))
+    out.specs = shd.param_specs({"moe": shd.param_shapes(p)}, mesh)["moe"]
+    xp = shd.row_placements(x)
+    xl = x.redistribute(mesh, xp).to_local()
+    with shd.use_mesh(mesh):
+        y, aux = moe_apply_ep(out, xl, n_experts=n_experts, top_k=top_k,
+                              capacity_factor=capacity_factor,
+                              compute_dtype=compute_dtype, groups=groups)
+    rep = [Replicate()] * len(names)
+    return (DTensor.from_local(y, mesh, xp, run_check=False,
+                               shape=x.shape, stride=x.stride()),
+            DTensor.from_local(aux, mesh, rep, run_check=False))

@@ -23,6 +23,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed.sharding import (data_axes, is_dtensor,
+                                              merge_heads, split_heads)
 from repro_torch.kernels import ops
 from repro_torch.nn.module import (Linear, linear, normal_, param,
                                    resolve_device, softplus)
@@ -100,11 +102,40 @@ class Mamba2(nn.Module):
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv.  x: (B, S, C), w: (K, C)."""
+    """Depthwise causal conv.  x: (B, S, C), w: (K, C).  DTensors:
+    ``_conv_region``."""
+    if is_dtensor(x):
+        return _conv_region(x, w, b)
     K, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     y = sum(xp[:, i: i + S, :] * w[i][None, None, :] for i in range(K))
     return y + b[None, None, :]
+
+
+def _conv_region(x, w, b):
+    """The conv on a DeviceMesh, in a ``local_map`` region: each rank's
+    rows, its channels where they are split over ``model`` (the weight
+    and bias split alike), the weights' gradients partial over the data
+    axes.  DTensor's own rule for the padding loses the mesh's dims on
+    some PyTorch versions."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    daxes = set(data_axes(mesh))
+    xp, wp, bp, wg, bg = [], [], [], [], []
+    for n, pl in zip(names, x.placements):
+        rows = n in daxes and pl == Shard(0)
+        chans = n == "model" and pl == Shard(2)
+        xp.append(Shard(0) if rows else Shard(2) if chans else Replicate())
+        wp.append(Shard(1) if chans else Replicate())
+        bp.append(Shard(0) if chans else Replicate())
+        wg.append(Partial() if rows else wp[-1])
+        bg.append(Partial() if rows else bp[-1])
+    return local_map(_causal_conv, out_placements=xp,
+                     in_placements=(xp, wp, bp),
+                     in_grad_placements=(xp, wg, bg), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w, b)
 
 
 def _conv_silu(v: torch.Tensor, c: CausalConv) -> torch.Tensor:
@@ -123,14 +154,14 @@ def mamba2_prefill(p: Mamba2, x: torch.Tensor, *, expand: int, state: int,
     Cs = linear(p.w_C, x, compute_dtype=compute_dtype)
     dt = linear(p.w_dt, x, compute_dtype=compute_dtype)
 
-    xi = _conv_silu(xs, p.conv_x).reshape(B, S, H, P)
+    xi = split_heads(_conv_silu(xs, p.conv_x), H, P)
     Bm = _conv_silu(Bs, p.conv_B)
     Cm = _conv_silu(Cs, p.conv_C)
     dt = softplus(dt.float() + p.dt_bias[None, None, :])
     A = -torch.exp(p.A_log)
     y, _ = ops.ssd_scan(xi, dt, A, Bm, Cm, chunk=chunk)
     y = y + p.D[None, None, :, None] * xi
-    y = y.reshape(B, S, d_in) * F.silu(z.float())
+    y = merge_heads(y) * F.silu(z.float())
     y = y * p.norm_scale.float()[None, None, :]
     return linear(p.out_proj, y.to(compute_dtype),
                   compute_dtype=compute_dtype)

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (batch_local, heads_local,
+                                              merge_heads, split_heads)
 from repro_torch.nn.module import Linear, linear, normal_, param
 
 STATE_NEG = -1e30  # the stabiliser's start, as the reference's
@@ -77,26 +79,34 @@ def mlstm_parallel(p: MLSTM, x: torch.Tensor, n_heads: int,
     H, P = n_heads, d // n_heads
 
     def proj(w):
-        return linear(w, x, compute_dtype=compute_dtype).reshape(
-            B, S, H, P).float()
+        return split_heads(linear(w, x, compute_dtype=compute_dtype), H,
+                           P).float()
 
     q, k, v = proj(p.wq), proj(p.wk), proj(p.wv)
     xf = x.float()
     it = _f32(p.w_i, xf)                                   # (B, S, H)
-    logf = F.logsigmoid(_f32(p.w_f, xf))
-    cum = torch.cumsum(logf, dim=1)
-    dt = cum[:, :, None, :] - cum[:, None, :, :] + it[:, None, :, :]
-    tril = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-    dt = torch.where(tril[None, :, :, None], dt, float("-inf"))
-    m = torch.amax(dt, dim=2)                              # (B, S, H)
-    dm = torch.exp(dt - m[:, :, None, :])
-    a = torch.einsum("bthp,bshp->btsh", q, k) / math.sqrt(P)
-    sm = a * dm
-    num = torch.einsum("btsh,bshp->bthp", sm, v)
-    den = torch.maximum(torch.abs(sm.sum(dim=2)), torch.exp(-m))
-    h = num / den[..., None]
+    # on a DeviceMesh, a region of each rank's rows: DTensor has no rule
+    # for log_sigmoid's backward, nor on some versions for the flip in
+    # cumsum's
+    cum = batch_local(lambda f: torch.cumsum(F.logsigmoid(f), dim=1),
+                      _f32(p.w_f, xf))
+
+    def heads(q, k, v, it, cum):
+        dt = cum[:, :, None, :] - cum[:, None, :, :] + it[:, None, :, :]
+        tril = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        dt = torch.where(tril[None, :, :, None], dt, float("-inf"))
+        m = torch.amax(dt, dim=2)                          # (B, S, H)
+        dm = torch.exp(dt - m[:, :, None, :])
+        a = torch.einsum("bthp,bshp->btsh", q, k) / math.sqrt(P)
+        sm = a * dm
+        num = torch.einsum("btsh,bshp->bthp", sm, v)
+        den = torch.maximum(torch.abs(sm.sum(dim=2)), torch.exp(-m))
+        return num / den[..., None]
+
+    # on a DeviceMesh, a region of each rank's rows and heads
+    h = heads_local(heads, q, k, v, it, cum)
     o = torch.sigmoid(_f32(p.w_o, xf))
-    y = h.reshape(B, S, d) * o * p.norm_scale.float()
+    y = merge_heads(h) * o * p.norm_scale.float()
     return linear(p.w_out, y.to(compute_dtype), compute_dtype=compute_dtype)
 
 
@@ -220,19 +230,26 @@ def slstm_scan(p: SLSTM, x: torch.Tensor, n_heads: int,
     (ref ``slstm_scan`` :170): the input projections hoisted out of the
     loop as (B, S, d) products, then a Python loop over time carries the
     recurrence."""
-    B, S, d = x.shape
     xf = x.float()
-    gx = torch.stack([_f32(getattr(p, f"w_{g}"), xf) for g in "zifo"])
-    r = p.recurrent()
-    z = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+    gx = torch.stack([_f32(getattr(p, f"w_{g}"), xf) for g in "zifo"], 1)
+    # on a DeviceMesh the loop runs on each rank's own rows
+    y = batch_local(_slstm_loop, gx, p.recurrent()) * p.norm_scale.float()
+    return y.to(compute_dtype)
+
+
+def _slstm_loop(gx: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The recurrence over time from a zero state: gx (B, 4, S, d) input
+    pre-activations, r (4, H, P, P) -> h (B, S, d) f32."""
+    B, _, S, d = gx.shape
+    gx = gx.transpose(0, 1)
+    z = torch.zeros((B, d), dtype=torch.float32, device=gx.device)
     c, n, h = z, z, z
-    m = torch.full((B, d), STATE_NEG, dtype=torch.float32, device=x.device)
+    m = torch.full((B, d), STATE_NEG, dtype=torch.float32, device=gx.device)
     hs = []
     for t in range(S):
         c, n, h, m = _cell(gx[:, :, t], r, c, n, h, m)
         hs.append(h)
-    y = torch.stack(hs, dim=1) * p.norm_scale.float()
-    return y.to(compute_dtype)
+    return torch.stack(hs, dim=1)
 
 
 def init_slstm_state(batch: int, d_model: int, *, n_layers: int,

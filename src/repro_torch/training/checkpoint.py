@@ -14,6 +14,11 @@ Both the collaborative LM (``CollabLM``) and the paper-scale
 narrower than f32 is written from its f32 optimizer master when a state
 is given, so that the reference restores its exact f32 parameters; on
 load the master takes the f32 leaf and the stored weight its cast.
+
+A model placed on a DeviceMesh is written whole, in the same layout:
+every rank calls ``save`` and joins each leaf's gather, one leaf at a
+time; rank 0 alone keeps the leaves on the host and writes.  ``load`` reads into an unplaced model; place it
+after (``distributed.sharding.distribute_collab``).
 """
 from __future__ import annotations
 
@@ -23,10 +28,12 @@ import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 from torch import nn
 
 from repro_torch import bridge
 from repro_torch.core.decomposition import CollabLM
+from repro_torch.distributed.sharding import mesh_of
 
 _KEY = re.compile(r"\['([^']*)'\]")
 
@@ -66,16 +73,20 @@ def save(path: str, step: int, model: nn.Module, opt_state=None,
          meta: Optional[Dict] = None) -> None:
     """Write ``model`` (and ``opt_state``, made by ``opt.init`` from
     ``model.parameters()``) as a checkpoint the reference's ``load``
-    reads."""
-    os.makedirs(path, exist_ok=True)
-    np.savez(os.path.join(path, "params.npz"),
-             **_flatten(_params_tree(model, opt_state)))
+    reads.  A placed model: every rank calls it, rank 0 writes."""
+    params = _flatten(_params_tree(model, opt_state))
+    flat = None
     if opt_state is not None:
         st = bridge.moments_to_numpy(model, opt_state)
         flat = {".count": st["count"]}
         for key in ("m", "v"):
             if st[key] is not None:
                 flat.update(_flatten(st[key], f".{key}"))
+    if mesh_of(model) is not None and torch.distributed.get_rank() != 0:
+        return
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "params.npz"), **params)
+    if flat is not None:
         np.savez(os.path.join(path, "opt.npz"), **flat)
     with open(os.path.join(path, "manifest.json"), "w") as fh:
         json.dump({"step": int(step), "meta": meta or {}}, fh)

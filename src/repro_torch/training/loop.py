@@ -11,6 +11,7 @@ experiments (small FC nets, Adam, the §4 recipe) through the step that
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -24,6 +25,7 @@ from repro_torch.core.decomposition import (CollabLM, PaperDecomposition,
                                             init_paper_decomposition,
                                             paper_forward)
 from repro_torch.core.losses import collab_lm_loss, paper_loss
+from repro_torch.distributed.sharding import mesh_of, whole
 from repro_torch.nn.module import resolve_device
 from repro_torch.training.optimizer import AdamW, OptState, keeps_masters
 
@@ -40,25 +42,43 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def placed_region(model: torch.nn.Module):
+    """A context for running ``model``: on a DeviceMesh, DTensor's
+    ``implicit_replication`` (a plain tensor the model code makes counts
+    as replicated); otherwise nothing."""
+    if mesh_of(model) is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
 def make_train_step(cfg: ArchConfig, opt, *, monitor_weight: float = 1.0,
                     safety_weight: float = 10.0) -> Callable:
     """(model, opt_state, batch) -> metrics: one step in place.  The model
     must be ``trainable`` and ``opt_state`` made by ``opt.init`` from its
     parameters; batch holds tensors on the model's device.  Metrics are
-    0-d tensors: the loss parts and ``grad_norm``."""
+    0-d tensors: the loss parts and ``grad_norm``.
+
+    The same step runs on a model placed on a DeviceMesh
+    (``distributed.sharding.distribute_collab``, the batch through
+    ``distribute_batch``, the state from ``opt.init(..., placements=)``):
+    DTensor's propagation inserts the collectives, and a tensor the model
+    code makes itself (rotary angles, masks) counts as replicated.  The
+    metrics are then the whole values, the same on every rank."""
 
     def step(model: CollabLM, opt_state: OptState,
              batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        out = collab_forward(model, cfg, batch)
-        parts = collab_lm_loss(out, batch, monitor_weight=monitor_weight,
-                               safety_weight=safety_weight)
-        parts["total"].backward()
+        with placed_region(model):
+            out = collab_forward(model, cfg, batch)
+            parts = collab_lm_loss(out, batch, monitor_weight=monitor_weight,
+                                   safety_weight=safety_weight)
+            parts["total"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        parts = {k: v.detach() for k, v in parts.items()}
+        parts = {k: whole(v.detach()) for k, v in parts.items()}
         parts["grad_norm"] = opt.update(grads, opt_state, params)
         return parts
 

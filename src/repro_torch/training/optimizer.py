@@ -19,14 +19,26 @@ bytes a trained parameter instead of 16).  Gradients are cast to f32
 before the clip norm, as the reference's ``gf`` is.  The update walks
 the parameters in chunks of at most ``CHUNK_ELEMS`` elements, which
 bounds its f32 temporaries.
+
+On a DeviceMesh (DTensor parameters, ``distributed.sharding
+.distribute_collab``) each moment and master lives in its
+``opt_specs(zero1=...)`` placement, given to ``init``.  ``update``
+redistributes each gradient to that placement (an all-reduce of a
+replicated leaf's partial sums over the data ranks, or under ZeRO-1 a
+reduce-scatter), runs the same arithmetic on the local blocks, and where
+a parameter's placement differs from its moments' (ZeRO-1) all-gathers
+the new value back.  ``global_norm`` is the norm over every block, a
+block held whole on several ranks counted once.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 import torch
 from torch.profiler import record_function
+
+from repro_torch.distributed.sharding import is_dtensor
 
 CHUNK_ELEMS = 1 << 28  # 1 GiB of f32 per temporary list
 
@@ -39,6 +51,8 @@ class OptState:
     m: List[torch.Tensor]                  # f32 first moments / momenta
     v: Optional[List[torch.Tensor]]        # f32 second moments (AdamW)
     master: List[Optional[torch.Tensor]]   # f32 master, or None if f32
+    # DTensor placements of the moments and masters (None: unplaced)
+    placements: Optional[List[Any]] = None
 
 
 def keeps_masters(cfg) -> bool:
@@ -47,15 +61,39 @@ def keeps_masters(cfg) -> bool:
     return cfg.param_dtype == "float32"
 
 
-def _masters(params: Sequence[torch.Tensor],
-             masters: bool) -> List[Optional[torch.Tensor]]:
-    return [p.detach().float().clone()
+def _opt_view(p: torch.Tensor, pl) -> torch.Tensor:
+    """``p`` in the moments' placement ``pl`` (itself when unplaced)."""
+    if pl is None or tuple(pl) == tuple(p.placements):
+        return p.detach()
+    return p.detach().redistribute(p.device_mesh, pl)
+
+
+def _masters(params: Sequence[torch.Tensor], masters: bool,
+             pls) -> List[Optional[torch.Tensor]]:
+    return [_opt_view(p, pl).float().clone()
             if masters and p.dtype != torch.float32 else None
-            for p in params]
+            for p, pl in zip(params, pls)]
 
 
-def _zeros(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    return [torch.zeros_like(p, dtype=torch.float32) for p in params]
+def _zeros(params: Sequence[torch.Tensor], pls) -> List[torch.Tensor]:
+    out = []
+    for p, pl in zip(params, pls):
+        if pl is None:
+            out.append(torch.zeros_like(p, dtype=torch.float32))
+        else:
+            from torch.distributed.tensor import zeros
+            out.append(zeros(p.shape, dtype=torch.float32,
+                             device_mesh=p.device_mesh, placements=pl))
+    return out
+
+
+def _placements(params, placements) -> List[Any]:
+    """Per parameter: the moments' placement (a DTensor parameter's own by
+    default), or None for a plain tensor."""
+    if placements is None:
+        return [tuple(p.placements) if is_dtensor(p) else None
+                for p in params]
+    return list(placements)
 
 
 def _lr(lr: Lr, count: int) -> float:
@@ -78,26 +116,96 @@ def _chunks(params: Sequence[torch.Tensor]):
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares of every gradient, in f32, + 1e-12)."""
-    norms = torch._foreach_norm(list(grads), 2, dtype=torch.float32)
-    return torch.sqrt(torch.stack(norms).square().sum() + 1e-12)
+    """sqrt(sum of squares of every gradient, in f32, + 1e-12).  DTensor
+    gradients (none partial: ``_Locals`` redistributes them first): the
+    sum over every block, each summed over the mesh dims its leaf is
+    split on, so a block held whole on several ranks counts once."""
+    grads = list(grads)
+    if not any(is_dtensor(g) for g in grads):
+        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+        return torch.sqrt(torch.stack(norms).square().sum() + 1e-12)
+    mesh = grads[0].device_mesh
+    norms = torch._foreach_norm([g.to_local() for g in grads], 2,
+                                dtype=torch.float32)
+    sq = torch.stack(norms).square()
+    groups = {}
+    for i, g in enumerate(grads):
+        dims = tuple(d for d, pl in enumerate(g.placements)
+                     if pl.is_shard() and mesh.size(d) > 1)
+        groups.setdefault(dims, []).append(i)
+    if list(groups) == [()]:
+        return torch.sqrt(sq.sum() + 1e-12)
+    import torch.distributed as dist
+    total = None
+    for dims, idx in sorted(groups.items()):
+        part = sq[torch.tensor(idx, device=sq.device)].sum()
+        for d in dims:
+            dist.all_reduce(part, group=mesh.get_group(d))
+        total = part if total is None else total + part
+    return torch.sqrt(total + 1e-12)
 
 
-def _targets(params, state: OptState, idx) -> List[torch.Tensor]:
-    """The f32 tensors the update runs on: the master, the parameter
-    itself where it is f32, else a temporary f32 copy of it."""
-    return [state.master[i] if state.master[i] is not None
-            else params[i].data if params[i].dtype == torch.float32
-            else params[i].data.float() for i in idx]
+class _Locals:
+    """The tensors an update's arithmetic runs on: the parameters, their
+    gradients and the state's moments and masters themselves, or, for
+    DTensor parameters, the local blocks in the moments' placement (the
+    gradients redistributed there first)."""
 
+    def __init__(self, grads, state: OptState, params):
+        self.params = list(params)
+        self.placed = state.placements is not None
+        if not self.placed:
+            self.grads, self.m, self.v = list(grads), state.m, state.v
+            self.master = state.master
+            self.w = [p.data for p in self.params]
+            self.norm = global_norm(self.grads)
+            return
+        pls = state.placements
+        g = [gr.redistribute(gr.device_mesh, pl)
+             for gr, pl in zip(grads, pls)]
+        self.norm = global_norm(g)
+        self.grads = [t.to_local() for t in g]
+        self.m = [t.to_local() for t in state.m]
+        self.v = None if state.v is None else [t.to_local()
+                                                for t in state.v]
+        self.master = [None if t is None else t.to_local()
+                       for t in state.master]
+        # a parameter placed as its moments updates its own block; else
+        # (ZeRO-1) a copy of the block the moments' placement gives
+        self.same = [tuple(p.placements) == tuple(pl)
+                     for p, pl in zip(self.params, pls)]
+        self.pls = pls
+        self.w = [p.data.to_local() if same
+                  else _opt_view(p.data, pl).to_local().clone()
+                  for p, pl, same in zip(self.params, pls, self.same)]
 
-def _write_back(params, idx, targets) -> None:
-    """Stored weights of the parameters narrower than f32: the updated f32
-    value cast to the storage dtype."""
-    pairs = [(params[i].data, w) for i, w in zip(idx, targets)
-             if params[i].dtype != torch.float32]
-    if pairs:
-        torch._foreach_copy_([p for p, _ in pairs], [w for _, w in pairs])
+    def targets(self, idx) -> List[torch.Tensor]:
+        """The f32 tensors the update runs on: the master, the parameter
+        itself where it is f32, else a temporary f32 copy of it."""
+        return [self.master[i] if self.master[i] is not None
+                else self.w[i] if self.w[i].dtype == torch.float32
+                else self.w[i].float() for i in idx]
+
+    def write_back(self, idx, targets) -> None:
+        """Stored weights of the parameters narrower than f32: the updated
+        f32 value cast to the storage dtype; under ZeRO-1 each parameter's
+        new value all-gathered into its own placement."""
+        pairs = [(self.w[i], w) for i, w in zip(idx, targets)
+                 if self.w[i].dtype != torch.float32]
+        if pairs:
+            torch._foreach_copy_([p for p, _ in pairs], [w for _, w in pairs])
+        if not self.placed:
+            return
+        from torch.distributed.tensor import DTensor
+        for i in idx:
+            if self.same[i]:
+                continue
+            p = self.params[i]
+            new = DTensor.from_local(self.w[i], p.device_mesh, self.pls[i],
+                                     run_check=False, shape=p.shape,
+                                     stride=p.stride())
+            p.data.to_local().copy_(
+                new.redistribute(p.device_mesh, p.placements).to_local())
 
 
 @dataclass(frozen=True)
@@ -110,11 +218,16 @@ class AdamW:
     clip_norm: float = 1.0
 
     def init(self, params: Sequence[torch.Tensor], *,
-             masters: bool = True) -> OptState:
+             masters: bool = True, placements=None) -> OptState:
         """``masters``: keep f32 masters of the narrower parameters
-        (``keeps_masters(cfg)``)."""
-        return OptState(count=0, m=_zeros(params), v=_zeros(params),
-                        master=_masters(params, masters))
+        (``keeps_masters(cfg)``).  ``placements``: per DTensor parameter,
+        its moments' placement (``distribute_collab``'s result in
+        parameter order; default: the parameter's own)."""
+        pls = _placements(params, placements)
+        placed = any(pl is not None for pl in pls)
+        return OptState(count=0, m=_zeros(params, pls), v=_zeros(params, pls),
+                        master=_masters(params, masters, pls),
+                        placements=pls if placed else None)
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: OptState,
@@ -123,7 +236,8 @@ class AdamW:
         clipping), an f32 scalar on the parameters' device.  A profiler
         sees it as the range ``adamw_update``."""
         with record_function("adamw_update"):
-            gnorm = global_norm(grads)
+            loc = _Locals(grads, state, params)
+            gnorm = loc.norm
             scale = (torch.clamp(self.clip_norm / gnorm, max=1.0)
                      if self.clip_norm else None)
             state.count += 1
@@ -131,12 +245,12 @@ class AdamW:
             f32 = torch.float32
             bc1 = float(1.0 - torch.tensor(self.b1, dtype=f32) ** state.count)
             bc2 = float(1.0 - torch.tensor(self.b2, dtype=f32) ** state.count)
-            for idx in _chunks(params):
-                g = [grads[i].float() for i in idx]
+            for idx in _chunks(loc.w):
+                g = [loc.grads[i].float() for i in idx]
                 if scale is not None:
                     g = torch._foreach_mul(g, scale)
-                m = [state.m[i] for i in idx]
-                v = [state.v[i] for i in idx]
+                m = [loc.m[i] for i in idx]
+                v = [loc.v[i] for i in idx]
                 torch._foreach_mul_(m, self.b1)
                 torch._foreach_add_(m, g, alpha=1 - self.b1)
                 torch._foreach_mul_(v, self.b2)
@@ -148,12 +262,12 @@ class AdamW:
                 torch._foreach_add_(den, self.eps)
                 torch._foreach_div_(step, den)
                 del den
-                w = _targets(params, state, idx)
+                w = loc.targets(idx)
                 if self.weight_decay:
                     torch._foreach_add_(step, w, alpha=self.weight_decay)
                 torch._foreach_add_(w, step, alpha=-lr)
                 del step
-                _write_back(params, idx, w)
+                loc.write_back(idx, w)
             return gnorm
 
 
@@ -164,22 +278,23 @@ class SGD:
 
     def init(self, params: Sequence[torch.Tensor], *,
              masters: bool = True) -> OptState:
-        return OptState(count=0, m=_zeros(params), v=None,
-                        master=_masters(params, masters))
+        pls = [None] * len(params)
+        return OptState(count=0, m=_zeros(params, pls), v=None,
+                        master=_masters(params, masters, pls))
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: OptState,
                params: Sequence[torch.Tensor]) -> torch.Tensor:
         """m = momentum * m + g; p -= lr * m.  Returns the global norm of
         the (unclipped) gradients."""
-        gnorm = global_norm(grads)
+        loc = _Locals(grads, state, params)
         state.count += 1
         lr = _lr(self.lr, state.count)
-        for idx in _chunks(params):
-            m = [state.m[i] for i in idx]
+        for idx in _chunks(loc.w):
+            m = [loc.m[i] for i in idx]
             torch._foreach_mul_(m, self.momentum)
-            torch._foreach_add_(m, [grads[i].float() for i in idx])
-            w = _targets(params, state, idx)
+            torch._foreach_add_(m, [loc.grads[i].float() for i in idx])
+            w = loc.targets(idx)
             torch._foreach_add_(w, m, alpha=-lr)
-            _write_back(params, idx, w)
-        return gnorm
+            loc.write_back(idx, w)
+        return loc.norm

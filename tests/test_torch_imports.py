@@ -34,6 +34,8 @@ import repro_torch.configs.qwen25_32b, repro_torch.configs.mixtral_8x22b
 import repro_torch.configs.deepseek_v3_671b
 import repro_torch.distributed, repro_torch.distributed.sharding
 import repro_torch.serving.mesh, repro_torch.launch.mesh
+import repro_torch.launch.dryrun, repro_torch.launch.layer_costs
+import repro_torch.launch.roofline, repro_torch.launch.report
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)

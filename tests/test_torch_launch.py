@@ -21,6 +21,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -299,6 +300,57 @@ def test_train_launcher_checkpoint_loads_in_the_reference(tmp_path):
         np.testing.assert_array_equal(got[path], w, err_msg=path)
 
 
+def test_train_launcher_on_two_gloo_ranks_checkpoint_loads_in_the_reference(
+        tmp_path):
+    """``launch.train --smoke --device cpu`` as two ranks of a
+    torchrun-style environment (gloo): the step runs on a (data 2, model
+    1) DeviceMesh for 2 steps, rank 0 alone logs and writes the
+    checkpoint, whole, and the JAX package's ``checkpoint.load`` reads
+    every leaf; the values are the port's."""
+    import socket
+    from repro_torch.training import checkpoint as tckpt
+    ck = str(tmp_path / "ck")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = {**_env(), "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "granite-8b", "--smoke", "--steps", "2", "--batch", "2",
+             "--seq", "16", "--device", "cpu", "--ckpt-dir", ck],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    assert "mesh {'data': 2, 'model': 1}  arch granite-8b" in outs[0][0]
+    assert "step     1  loss" in outs[0][0] and outs[1][0] == ""
+    assert f"checkpoint -> {ck}" in outs[0][0]
+    jcfg = _pair()[0]
+    template = jdeco.init_collab_lm(jax.random.PRNGKey(1), jcfg)
+    step, jparams, jopt_state = jckpt.load(ck, template,
+                                           jopt.AdamW().init(template))
+    assert step == 2 and int(jopt_state.count) == 2
+    tcfg = registry.get_smoke("granite-8b")
+    model = init_collab_lm(tcfg, torch.Generator().manual_seed(5), "cpu")
+    tckpt.load(ck, model)
+    got = jckpt._flatten(bridge.collab_to_numpy(model))
+    for path, w in jckpt._flatten(jax.tree.map(np.asarray, jparams)).items():
+        np.testing.assert_array_equal(got[path], w, err_msg=path)
+
+
 def test_mesh_options_raise_naming_their_item(capsys):
     """The production meshes need 256 and 512 devices: on this host the
     train launcher raises the device-count ValueError, as the reference's
@@ -308,6 +360,12 @@ def test_mesh_options_raise_naming_their_item(capsys):
         with pytest.raises(ValueError, match=f"needs {n} devices"):
             ttrain.main(["--arch", "granite-8b", "--mesh", mesh,
                          "--device", "cpu"])
+    # under torchrun's environment the world must hold the mesh too
+    with mock.patch.dict(os.environ, {"RANK": "0", "WORLD_SIZE": "2"}):
+        for mesh, n in (("production", 256), ("multipod", 512)):
+            with pytest.raises(ValueError, match=f"needs {n} devices"):
+                ttrain.main(["--arch", "granite-8b", "--mesh", mesh,
+                             "--device", "cpu"])
     tserve.main(["--arch", "granite-8b", "--engine", "collab",
                  "--mesh", "data:2", "--device", "cpu", "--batch", "2",
                  "--tokens", "4"])

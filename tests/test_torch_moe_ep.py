@@ -147,7 +147,8 @@ def test_ep_matches_dense_per_data_shard_and_globally(E, layout):
     """E = 8: expert-parallel (two experts a model rank); E = 6: the d_ff
     split.  At capacity factor 1.25 each data rank equals the reference's
     dense dispatch over its own tokens; at a capacity factor that drops
-    nothing, the global dispatch over all tokens; gradients too."""
+    nothing, the global dispatch over all tokens; gradients too.  The
+    load-balance loss is the global batch's at both."""
     with tempfile.TemporaryDirectory(prefix="ep_") as tmp:
         tree, x, cot, outs = _run_ranks(tmp, E, n_shared=1,
                                         cfs=(1.25, NO_DROP), seed=E)
@@ -157,11 +158,12 @@ def test_ep_matches_dense_per_data_shard_and_globally(E, layout):
     xs, cs = np.split(x, MESH[0]), np.split(cot, MESH[0])
     shard = [_dense(tree, xs[i], cs[i], E, 1.25) for i in range(MESH[0])]
     y_all, aux_all, g_all = _dense(tree, x, cot, E, NO_DROP)
-    mean_aux = float(np.mean([s[1] for s in shard]))
     for out in outs:
         i = int(out["coords"][0])
         y, _, g = shard[i]
-        _check_rank(out, 1.25, y, mean_aux, g)
+        _check_rank(out, 1.25, y, aux_all, g)
+        np.testing.assert_allclose(out[f"{NO_DROP}/aux"], aux_all,
+                                   rtol=1e-5)
         # no drops: the global dispatch's rows of this data shard; the
         # gradients of the replicated parameters are per data shard
         # (a data-parallel step sums them)
