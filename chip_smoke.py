@@ -185,17 +185,38 @@ Phases, each printing its own lines:
               launches equal, ms/step of both.  Two
               subprocesses run the dry run (python -m
               repro_torch.launch.dryrun) of granite-8b and deepseek-v3
-              train_4k on the production mesh over fake tensors: their
-              roofline rows are computed from counts over the H100 SXM's
-              peaks, not measured; they start before phase 5's train
-              cells, whose card is busy while the host waits.
+              train_4k and decode_32k on the production mesh over fake
+              tensors: their roofline rows are computed from counts over
+              the H100 SXM's peaks, not measured; they start before phase
+              5's train cells, whose card is busy while the host waits.
+15. mesh-serve -- after phase 14: the decode kernel's partial entry
+              (one time slice of a cache split over ranks: f32 output and
+              log-sum-exp) at granite-8b's decode_32k slice on the
+              production mesh (B 8, 2048 rows, 32/8 heads of 128) against
+              its plain version in bf16 and f32 (rows the slice leaves
+              empty give o = 0, lse = -inf); a 4096-row cache cut into
+              2, 4, 8 and 16 slices joined by combine_partials against
+              the full kernel; long_500k's 8192-slot ring over 16 ranks;
+              its time beside its bound and SDPA on the slice.  Then
+              launch/steps.py's serve step of granite-8b (8 of 36
+              layers, full width, B = 8, a 4096-row cache) placed on a
+              (data 1, model 1) DeviceMesh over a one-rank NCCL group,
+              bitwise the unplaced step in logits, u, fhat, mask and
+              caches with equal launches; and on a (data 1, model 2) mesh
+              of two ranks as threads of this process over the card
+              (PyTorch's threaded process group), in f32: the server
+              cache split over time, every decode through the partial
+              entry on each rank's slice and the cross-rank combine, held
+              to the unplaced f32 step (u, mask, edge cache bitwise;
+              logits, fhat, server cache within the f32 end-to-end
+              tolerance); its partial launches are the kernels line's.
 
 --profile adds torch.profiler breakdowns of one sync and one scan run, of
 one train step per model, of a train_paper step and of a generate step
 per model, and the CUDA stream ids of the serve kernels in a short async
 stream run per model (the phases run in the order 1-3, 4's granite-8b
 cell, 13, 4's zamba2-7b cell, 8, 9, 10, 11's and 12's serve cells, 5,
-14, 11's and 12's train cells, 6, 7).
+14, 15, 11's and 12's train cells, 6, 7).
 Then
 one JSON line of the kernels, the
 card's name and power limit, and a last line {"ok": true, "device":
@@ -301,36 +322,58 @@ def time_ms(torch, fn, iters: int):
     return device, (time.perf_counter() - t0) * 1e3 / iters
 
 
-PROFILE_TRIES = 3
+PROFILE_TRIES = 8
+# the CUDA API calls that put work on the card: a launch, a memset, a copy
+_SUBMIT = re.compile(r"cu(da)?(LaunchKernel|LaunchCooperativeKernel|Memset|"
+                     r"Memcpy)")
 
 
 def device_kernels(torch, fn, calls: int = 5) -> list:
     """The device kernels one call of ``fn`` runs, by name, as the profiler
-    sees them over ``calls`` calls (raises if the counts differ).  A
-    throwaway profiled call comes first: the tracer has dropped a device
-    event of the first session it traced in a process, and has dropped
-    one of a later session too (9 of ssd_scan's 10 in five calls, on the
-    H100), so a session whose count is not a multiple of ``calls`` is
-    traced again, up to PROFILE_TRIES sessions in all."""
+    sees them over ``calls`` calls (raises if the calls differ).
+
+    Work is counted by correlation id: each API call that submits work
+    (``_SUBMIT``) and each device event, in the order of their ids.  On
+    the H100 the tracer keeps every API call but, after a spell of heavy
+    work, drops the device events of whole calls at a session's start, in
+    some sessions all of them, in every retry of a run; it has also
+    dropped one in the first session of a process.  So a submission
+    whose device event was dropped still counts, and takes its name from
+    the same position in another call; a session that leaves a position
+    unnamed in every call is traced again, up to PROFILE_TRIES sessions,
+    and a name still missing then is given as "?" (the checks read the
+    count)."""
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]):
             fn()
             torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        names = [_kernel_name(e.name) for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(names) % calls == 0 and len(names) > 0:
-            break
-        print(f"[profile] {len(names)} device kernels in {calls} calls: "
-              f"an event dropped, tracing again")
-    check(len(names) % calls == 0 and len(names) > 0,
-          f"profiler saw {len(names)} device kernels in {calls} calls")
-    return names[:len(names) // calls]
+        names, ids = {}, set()
+        for e in prof.events():
+            if e.device_type == cuda:
+                names[e.id] = _kernel_name(e.name)
+                ids.add(e.id)
+            elif _SUBMIT.match(e.name):
+                ids.add(e.id)
+        order = sorted(ids)
+        check(len(order) % calls == 0 and len(order) > 0,
+              f"profiler saw {len(order)} submissions in {calls} calls")
+        per = len(order) // calls
+        kinds = [next((names[i] for i in order[j::per] if i in names), None)
+                 for j in range(per)]
+        if None not in kinds:
+            return kinds
+        print(f"[profile] {len(names)} device events for {len(order)} "
+              f"submissions in {calls} calls: {kinds.count(None)} of a "
+              f"call's {per} unnamed")
+    return [k or "?" for k in kinds]
 
 
 def _kernel_name(name: str) -> str:
@@ -353,6 +396,12 @@ def max_err(a, b) -> float:
 def within(a, b, tol: float) -> bool:
     a, b = a.float(), b.float()
     return bool(((a - b).abs() <= tol + tol * b.abs()).all())
+
+
+def rel_gap(a, b, tol: float) -> float:
+    """max |a - b| / (tol + tol |b|): at most 1 where ``within`` holds."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / (tol + tol * b.abs())).max())
 
 
 def bf16_attention_bound(torch, plain, q, k, v, ref, window: int):
@@ -3996,7 +4045,9 @@ def phase_mesh(torch, dev, args, kept) -> dict:
 # (3 steps) and zamba2-7b at the hybrid train cell's 13 (2 steps), B = 2
 # x S = 4096, each beside the unsharded step from the same seed
 MESH_TRAIN_STEPS = {"dense": 3, "hybrid": 2}
-DRYRUN_PAIRS = (("granite-8b", "train_4k"), ("deepseek-v3-671b", "train_4k"))
+DRYRUN_PAIRS = (("granite-8b", "train_4k"), ("deepseek-v3-671b", "train_4k"),
+                ("granite-8b", "decode_32k"),
+                ("deepseek-v3-671b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 300
 
 
@@ -4137,6 +4188,337 @@ def phase_mesh_train(torch, dev, args, children) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- phase 15
+# the serve step on the model axis.  The partial entry at granite-8b's
+# decode_32k slice on the production mesh (16, 16): B = 128 / 16 data
+# ranks = 8 rows, C = 32768 / 16 model ranks = 2048 cache rows a rank
+PARTIAL_SLICE = (8, 2048, 32, 8, 128)       # B, Cl, Hq, Hkv, D
+PARTIAL_CACHE = 4096                        # C cut into M slices
+PARTIAL_SLICES = (2, 4, 8, 16)              # M
+PARTIAL_POS = (0, 5, 300, 1023, 2047, 2500, 4095, 9000)  # empty slices
+RING = (8192, 16, 524_287)   # long_500k: 8192 slots over 16 ranks, B 1
+# the placed serve step: granite-8b at full width, 8 of 36 layers (as the
+# train cell), B = 8 streams over a 4096-row cache, MESH_SERVE_STEPS tokens
+# from MESH_SERVE_POS0, so a model-2 split's steps cross its two slices
+MESH_SERVE_LAYERS, MESH_SERVE_LEN = 8, 4096
+MESH_SERVE_STEPS, MESH_SERVE_POS0 = 8, 2044
+MESH_SERVE_MODEL = 2          # the model axis of the threaded run
+MESH_SERVE_JOIN_S = 300
+
+
+def partial_kernel(torch, dev, seed: int) -> dict:
+    """The partial entry of the decode kernel: against its plain version
+    at granite-8b's decode_32k slice (bf16 and f32, rows left empty by
+    the slice's base), the slices of a cache combined by
+    ``combine_partials`` against the full kernel, the long_500k ring over
+    16 ranks; its time beside its bound and SDPA on the same slice.
+    Returns its JSON record (launches from the main path later)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        combine_partials, decode_attention_cuda,
+        decode_attention_partial_cuda, decode_attention_partial_plain)
+    gen = torch.Generator(dev).manual_seed(seed)
+    B, Cl, Hq, Hkv, D = PARTIAL_SLICE
+    worst = 0.0
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[str(dtype).split(".")[1]]
+        q, k, v = rand((B, Hq, D), dtype), rand((B, Cl, Hkv, D), dtype), \
+            rand((B, Cl, Hkv, D), dtype)
+        base = Cl   # the second rank's slice
+        pos = torch.tensor([0, 100, Cl - 1, Cl, Cl + 7, 2 * Cl - 1, 2 * Cl,
+                            9 * Cl], device=dev)[:B]
+        o, lse = decode_attention_partial_cuda(q, k, v, pos, base)
+        want_o, want_lse = decode_attention_partial_plain(q, k, v, pos, base)
+        torch.cuda.synchronize()
+        empty = pos < base
+        check(bool((lse[empty] == -math.inf).all())
+              and bool((o[empty] == 0).all()),
+              "partial entry: an empty slice gives o = 0, lse = -inf")
+        err = max(max_err(o, want_o), max_err(lse[~empty], want_lse[~empty]))
+        worst = max(worst, err)
+        print(f"[mesh-serve] partial entry {dtype} B={B} Cl={Cl} Hq={Hq} "
+              f"Hkv={Hkv} D={D} base={base}: max_abs_err vs plain "
+              f"{err:.3e} (tol {tol}); {int(empty.sum())} rows empty")
+        check(within(o, want_o, tol)
+              and within(lse[~empty], want_lse[~empty], tol),
+              f"partial entry vs plain {dtype}")
+        C = PARTIAL_CACHE
+        k, v = rand((B, C, Hkv, D), dtype), rand((B, C, Hkv, D), dtype)
+        pos = torch.tensor(PARTIAL_POS, device=dev)[:B]
+        full = decode_attention_cuda(q, k, v, pos)
+        for m in PARTIAL_SLICES:
+            w = C // m
+            parts = [decode_attention_partial_cuda(
+                q, k[:, r * w:(r + 1) * w].contiguous(),
+                v[:, r * w:(r + 1) * w].contiguous(), pos, r * w)
+                for r in range(m)]
+            got = combine_partials([a for a, _ in parts],
+                                   [b for _, b in parts]).to(dtype)
+            torch.cuda.synchronize()
+            err = max_err(got, full)
+            worst = max(worst, err)
+            print(f"[mesh-serve] {m} slices of a C={C} cache combined "
+                  f"against the full kernel, {dtype}: max_abs_err "
+                  f"{err:.3e} (tol {tol})")
+            check(within(got, full, tol), f"combine over {m} slices {dtype}")
+        slots, ranks, rpos = RING
+        w = slots // ranks
+        q1 = rand((1, Hq, D), dtype)
+        k1, v1 = rand((1, slots, Hkv, D), dtype), \
+            rand((1, slots, Hkv, D), dtype)
+        parts = [decode_attention_partial_cuda(
+            q1, k1[:, r * w:(r + 1) * w].contiguous(),
+            v1[:, r * w:(r + 1) * w].contiguous(), rpos, r * w)
+            for r in range(ranks)]
+        got = combine_partials([a for a, _ in parts],
+                               [b for _, b in parts]).to(dtype)
+        want = decode_attention_cuda(q1, k1, v1, rpos)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        worst = max(worst, err)
+        print(f"[mesh-serve] long_500k ring: {slots} slots over {ranks} "
+              f"ranks at pos {rpos}, combined against the full kernel, "
+              f"{dtype}: max_abs_err {err:.3e} (tol {tol})")
+        check(within(got, want, tol), f"ring over {ranks} ranks {dtype}")
+        del k, v, k1, v1
+
+    # time at the slice, cache cold (copies beyond the 50 MB L2)
+    bf16 = torch.bfloat16
+    per = 2 * B * Cl * Hkv * D * 2
+    n_copies = max(2, math.ceil(200e6 / per))
+    q = rand((B, Hq, D), bf16)
+    ks = [rand((B, Cl, Hkv, D), bf16) for _ in range(n_copies)]
+    vs = [rand((B, Cl, Hkv, D), bf16) for _ in range(n_copies)]
+    pos = torch.full((B,), 32767, dtype=torch.int32, device=dev)
+    base = 15 * Cl   # the last rank's slice: every row valid
+    ms, host = time_ms(torch, lambda i: decode_attention_partial_cuda(
+        q, ks[i % n_copies], vs[i % n_copies], pos, base), 100)
+    plain, _ = time_ms(torch, lambda i: decode_attention_partial_plain(
+        q, ks[i % n_copies], vs[i % n_copies], pos, base), 20)
+    lib = None
+    if has_gqa_sdpa(torch):
+        qs = q[:, :, None, :]
+        lib, _ = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qs, ks[i % n_copies].transpose(1, 2),
+            vs[i % n_copies].transpose(1, 2), enable_gqa=True), 100)
+    n_bytes = q.numel() * 2 + per + B * Hq * D * 4 + B * Hq * 4 + B * 4
+    bms, by = bound_ms(n_bytes, 4.0 * B * Hq * Cl * D, BF16_FLOPS)
+    print(f"[mesh-serve] partial entry time B={B} Cl={Cl} Hq={Hq} Hkv={Hkv} "
+          f"D={D} (cache cold, {n_copies} copies): kernel {ms * 1e3:.2f} us "
+          f"(host-bound per call {host * 1e3:.2f} us), plain "
+          f"{plain * 1e3:.2f} us, SDPA on the slice "
+          f"{'n/a' if lib is None else f'{lib * 1e3:.2f} us'}, bound "
+          f"{bms * 1e3:.2f} us ({by}, {n_bytes / 1e6:.2f} MB)")
+    del ks, vs
+    return dict(name="decode_attention_partial", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:59",
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def _mesh_serve_run(torch, dev, args, cfg, dmesh):
+    """MESH_SERVE_STEPS ungated serve steps (``launch.steps.
+    make_serve_step``) of ``cfg`` from the seed's weights on ``dmesh``
+    (weights placed as they are drawn, caches by ``init_cache(...,
+    device_mesh=)``) or unplaced: the whole outputs of every step, the
+    whole caches after the last, and ms/step over steps 2..."""
+    from repro_torch.core.decomposition import edge_arch, init_collab_lm
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.api import init_cache
+    model = init_collab_lm(cfg, torch.Generator(dev).manual_seed(args.seed),
+                           dev, device_mesh=dmesh)
+    kw = {} if dmesh is None else {"device_mesh": dmesh}
+    server = init_cache(cfg, BATCH, MESH_SERVE_LEN, dev, **kw)
+    edge = init_cache(edge_arch(cfg), BATCH, MESH_SERVE_LEN, dev, **kw,
+                      **({} if dmesh is None else {"use_model": False}))
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, MESH_SERVE_STEPS),
+                         generator=torch.Generator(dev).manual_seed(
+                             args.seed + 1), device=dev)
+    step = make_serve_step(cfg)
+    outs, marks = [], []
+    for t in range(MESH_SERVE_STEPS):
+        tok = toks[:, t]
+        if dmesh is not None:
+            tok = shd.distribute_batch({"t": tok}, dmesh)["t"]
+        r = step(model, server, edge, tok, MESH_SERVE_POS0 + t)
+        outs.append({k: shd.whole(r[k]).clone()
+                     for k in ("logits", "u", "fhat", "mask")})
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    caches = ([shd.whole(x) for x in shd.tree_leaves_of(server)],
+              [shd.whole(x) for x in shd.tree_leaves_of(edge)])
+    del model, server, edge
+    return outs, caches, (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+
+
+def _threaded_model_run(torch, dev, args, cfg, model_size: int):
+    """``_mesh_serve_run`` on a (data 1, model ``model_size``) mesh over
+    one card: ``model_size`` ranks as threads of this process in a
+    ``threaded`` process group (PyTorch's in-process backend, whose
+    collectives are tensor ops on the card), each with its blocks of the
+    weights, its slice of the server cache and its partial of every
+    decode.  Returns rank 0's run."""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed import multi_threaded_pg as mtp
+    old_world = dist.distributed_c10d._world
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    mtp._install_threaded_pg()
+    store = dist.HashStore()
+    res, errs = {}, {}
+
+    kind = torch.device(dev).type
+
+    def rank_main(rank):
+        try:
+            if kind == "cuda":
+                torch.cuda.set_device(dev)
+            # the group goes with the threaded world when it is
+            # uninstalled (destroy_process_group fails on that world in
+            # PyTorch 2.11)
+            dist.init_process_group("threaded", rank=rank,
+                                    world_size=model_size, store=store)
+            dmesh = init_device_mesh(kind, (1, model_size),
+                                     mesh_dim_names=("data", "model"))
+            res[rank] = _mesh_serve_run(torch, dev, args, cfg, dmesh)
+        except BaseException:
+            errs[rank] = traceback.format_exc()
+
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True)
+               for r in range(model_size)]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=MESH_SERVE_JOIN_S)
+    finally:
+        if hasattr(mtp, "_uninstall_threaded_pg"):
+            mtp._uninstall_threaded_pg()   # the world and autograd's threads
+        dist.distributed_c10d._world = old_world
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    check(not any(th.is_alive() for th in threads),
+          f"threaded ranks joined within {MESH_SERVE_JOIN_S} s")
+    check(not errs, f"threaded ranks: {errs}")
+    return res[0]
+
+
+def phase_mesh_serve(torch, dev, args) -> tuple:
+    """The serve step on the model axis on the card: the partial entry
+    (``partial_kernel``); granite-8b (8 layers, full width) placed on a
+    (data 1, model 1) mesh over a one-rank NCCL group, bitwise the
+    unplaced step in logits, u, fhat, mask and caches with equal
+    launches (at model 1 the decode region runs the whole kernel); then
+    in f32 on a (data 1, model 2) mesh of two threaded ranks over the
+    card: the server cache split over time, each rank's decodes through
+    the partial entry and the combine, held to the unplaced f32 step (u,
+    the mask and the edge cache bitwise: the edge tower is whole on every
+    rank; logits, fhat and the server cache within the f32 end-to-end
+    tolerance).
+    Returns (the partial entry's record, the main path's launches: the
+    placed runs')."""
+    import socket as socket_mod
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.configs import granite_8b
+    record = partial_kernel(torch, dev, args.seed)
+    cfg = granite_8b.FULL.replace(n_layers=MESH_SERVE_LAYERS)
+    kernels.reset_launch_counts()
+    want, want_caches, ms0 = _mesh_serve_run(torch, dev, args, cfg, None)
+    c0 = kernels.launch_counts()
+    with socket_mod.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cuda = torch.device(dev).type == "cuda"
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}",
+        world_size=1, rank=0, **({"device_id": torch.device(dev)}
+                                 if cuda else {}))
+    try:
+        dmesh = init_device_mesh(torch.device(dev).type, (1, 1),
+                                 mesh_dim_names=("data", "model"))
+        kernels.reset_launch_counts()
+        got, got_caches, ms1 = _mesh_serve_run(torch, dev, args, cfg, dmesh)
+        c1 = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(g[k], w[k]) for g, w in zip(got, want) for k in w)
+    same_caches = all(torch.equal(a, b) for g, w in zip(got_caches,
+                                                         want_caches)
+                      for a, b in zip(g, w))
+    print(f"[mesh-serve] {cfg.name} {cfg.n_layers} layers B={BATCH} "
+          f"C={MESH_SERVE_LEN}, {MESH_SERVE_STEPS} serve steps on a (data 1, "
+          f"model 1) DeviceMesh (one NCCL rank): logits/u/fhat/mask "
+          f"{'bitwise' if same else 'NOT bitwise'}, caches "
+          f"{'bitwise' if same_caches else 'NOT bitwise'} the unplaced "
+          f"step; {ms1:.2f} ms/step placed against {ms0:.2f} unplaced; "
+          f"launches {c1} against {c0}")
+    check(same and same_caches, "placed (1, 1) serve step bitwise unplaced")
+    for name in SERVE_KERNELS:
+        check(c1[name] == c0[name] and c1[name] > 0,
+              f"(1, 1) {name} launches {c1[name]} == {c0[name]}")
+    # the split in f32: in bf16 the placed step's row-parallel products
+    # round their two partial sums apart, as far from the unplaced step as
+    # bf16 is from f32 (4e-2 in the logits at SMOKE on the CPU both ways)
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
+    want, want_caches, ms3 = _mesh_serve_run(torch, dev, args, f32, None)
+    kernels.reset_launch_counts()
+    split, split_caches, ms2 = _threaded_model_run(torch, dev, args, f32,
+                                                   MESH_SERVE_MODEL)
+    c2 = kernels.launch_counts()
+    n_attn = MESH_SERVE_STEPS * cfg.n_layers * MESH_SERVE_MODEL
+    tol = TOL_E2E["float32"]
+    errs = {k: max(max_err(g[k], w[k]) for g, w in zip(split, want))
+            for k in ("logits", "u", "fhat")}
+    server_err = max(max_err(a, b) for a, b in zip(split_caches[0],
+                                                   want_caches[0]))
+    edge_same = all(torch.equal(a, b) for a, b in zip(split_caches[1],
+                                                      want_caches[1]))
+    mask_same = all(torch.equal(g["mask"], w["mask"])
+                    for g, w in zip(split, want))
+    print(f"[mesh-serve] {cfg.name} in f32 on a (data 1, model "
+          f"{MESH_SERVE_MODEL}) DeviceMesh of threaded ranks over the card "
+          f"(cache split over time, {MESH_SERVE_LEN // MESH_SERVE_MODEL} "
+          f"rows a rank, steps at pos {MESH_SERVE_POS0}.."
+          f"{MESH_SERVE_POS0 + MESH_SERVE_STEPS - 1} crossing the slices): "
+          f"max_abs_err against the unplaced step logits "
+          f"{errs['logits']:.3e}, u {errs['u']:.3e}, fhat {errs['fhat']:.3e}"
+          f", server cache {server_err:.3e} (f32 tol {tol}); mask "
+          f"{'bitwise' if mask_same else 'differs'}, edge cache "
+          f"{'bitwise' if edge_same else 'differs'}; {ms2:.2f} ms/step "
+          f"against {ms3:.2f} unplaced in f32 (each rank a host thread); "
+          f"launches {c2}")
+    check(errs["u"] == 0.0 and mask_same and edge_same,
+          "model-2 step: u, mask and edge cache bitwise the unplaced step")
+    # the worst |got - want| / (tol + tol |want|) over each output: <= 1
+    # is within the f32 end-to-end tolerance
+    ratio = {k: max(rel_gap(g[k], w[k], tol) for g, w in zip(split, want))
+             for k in ("logits", "fhat")}
+    ratio["server cache"] = max(rel_gap(a, b, tol) for a, b in zip(
+        split_caches[0], want_caches[0]))
+    print(f"[mesh-serve] model-2 step: worst gap over the tolerance "
+          f"{ {k: round(v, 4) for k, v in ratio.items()} }")
+    check(max(ratio.values()) <= 1.0,
+          f"model-2 step within {tol} of the unplaced step")
+    check(c2["decode_attention_partial"] == n_attn,
+          f"partial entry launches {c2['decode_attention_partial']} == "
+          f"{n_attn} (steps x layers x ranks)")
+    counts = {name: c1[name] + c2[name] for name in SERVE_KERNELS}
+    counts["decode_attention_partial"] = c2["decode_attention_partial"]
+    return record, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4271,6 +4653,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     took("mesh-train")
+    records["decode_attention_partial"], run = phase_mesh_serve(torch, dev,
+                                                                args)
+    counts["decode_attention_partial"] = 0
+    for name, n in run.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    took("mesh-serve")
     from repro_torch.configs import deepseek_v3_671b, mixtral_8x22b
     for label, cfg, n_full in (
             ("train-moe", mixtral_8x22b.FULL.replace(n_layers=1),

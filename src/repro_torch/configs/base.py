@@ -59,12 +59,17 @@ class ArchConfig:
     """One backbone of any of the reference's families (dense, moe, vlm,
     audio, hybrid, ssm), field for field.
     Left out are the reference's XLA partitioner and scan knobs
-    (``decode_cache_shard``, ``moe_impl``, ``seq_parallel``,
-    ``prefill_kv_shard``, ``scan_unroll``): they have no meaning in an
-    eager PyTorch program.  ``remat`` keeps its meaning: activation
-    checkpointing of each layer in the training forward.  ``zero1`` splits
-    the optimizer moments over the data axes on a DeviceMesh
-    (``distributed.sharding.opt_specs``)."""
+    (``moe_impl``, ``seq_parallel``, ``prefill_kv_shard``,
+    ``scan_unroll``): they have no meaning in an eager PyTorch program.
+    ``remat`` keeps its meaning: activation checkpointing of each layer in
+    the training forward.  ``zero1`` splits the optimizer moments over the
+    data axes on a DeviceMesh (``distributed.sharding.opt_specs``).
+    ``decode_cache_shard`` places the server's decode cache on a
+    DeviceMesh (``distributed.sharding.cache_specs``, read by
+    ``models.api.init_cache(..., device_mesh=)``): ``"time"`` splits its
+    time axis over ``model`` and decode attention combines each rank's
+    partial softmax (``kernels/ops.py``); ``"heads"`` splits a trailing
+    dim, the reference's baseline."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -109,6 +114,7 @@ class ArchConfig:
     param_dtype: str = "float32"     # parameter storage dtype
     remat: bool = True               # activation checkpointing per layer
     zero1: bool = False              # optimizer moments split over data
+    decode_cache_shard: str = "time"  # "time" | "heads": the server cache
     monitor: MonitorConfig = field(default_factory=MonitorConfig)
 
     @property

@@ -246,12 +246,15 @@ def _map_cache(fn, tree):
 
 
 def cache_specs(cache_tree: Any, mesh, batch: int, *,
-                use_model: bool = True, mode: str = "heads") -> Any:
+                use_model: bool = True, mode: str = "heads",
+                batch_axis: Optional[int] = None) -> Any:
     """KV/SSM cache specs, the reference's rule: the batch axis (the first
     axis whose size is ``batch``) over the data axes; with a model axis,
     ``mode="heads"`` puts it on the last trailing dim (>= 2 past the
     batch axis, so the cache-time axis stays whole) that it divides, and
-    ``mode="time"`` on the cache-time axis (batch axis + 1)."""
+    ``mode="time"`` on the cache-time axis (batch axis + 1).
+    ``batch_axis`` names the batch axis of every leaf instead of the
+    search, which takes a layer axis as long as the batch for it."""
     sizes = mesh_sizes(mesh)
     model = sizes.get("model", 1)
     # a mesh without a model axis must never emit a "model" entry
@@ -266,7 +269,8 @@ def cache_specs(cache_tree: Any, mesh, batch: int, *,
             return ()
         spec: List[Any] = [None] * ndim
         try:
-            baxis = next(i for i in range(ndim - 1) if shape[i] == batch)
+            baxis = batch_axis if batch_axis is not None else next(
+                i for i in range(ndim - 1) if shape[i] == batch)
         except StopIteration:
             return ()
         if batch % dtotal == 0 and daxes:
@@ -620,6 +624,97 @@ def distribute_batch(batch: Mapping[str, torch.Tensor],
     return out
 
 
+def cache_placements(cache: Any, device_mesh, batch: int, *,
+                     mode: str = "time", use_model: bool = True) -> Any:
+    """``cache_specs``' placements: the cache's tree (its NamedTuples and
+    dicts) with each leaf's DTensor placements on ``device_mesh``.  Every
+    leaf of a model's decode cache stacks its layers on axis 0 and its
+    streams on axis 1 (``models/*.init_cache``), so the batch axis is 1,
+    also where the layer count equals the batch."""
+    return _map_cache(lambda spec: placements(spec, device_mesh),
+                      cache_specs(_map_cache(_shape, cache), device_mesh,
+                                  batch, use_model=use_model, mode=mode,
+                                  batch_axis=1))
+
+
+def distribute_cache(cache: Any, device_mesh, batch: int, *,
+                     mode: str = "time", use_model: bool = True) -> Any:
+    """Every leaf of a decode cache (the same whole cache on every rank)
+    as a DTensor placed by ``cache_placements``: each rank keeps its
+    block, no collective moves it (``distribute_batch``'s counterpart)."""
+    from torch.distributed.tensor import distribute_tensor
+    pls = cache_placements(cache, device_mesh, batch, mode=mode,
+                           use_model=use_model)
+    leaves = iter(tree_leaves_of(pls))
+    return _map_cache(lambda t: distribute_tensor(
+        t, device_mesh, next(leaves), src_data_rank=None), cache)
+
+
+def tree_leaves_of(tree) -> List[Any]:
+    """The leaves of a cache tree (``_map_cache``'s order)."""
+    out: List[Any] = []
+    _map_cache(lambda leaf: out.append(leaf), tree)
+    return out
+
+
+def placed_cache(build, device, device_mesh, batch: int, *,
+                 mode: str = "time", use_model: bool = True) -> Any:
+    """``build(device)`` (a cache's zero or constant init) with every leaf
+    a DTensor placed by ``cache_placements``, where ``device`` holds only
+    this rank's block of each: the layout is built on the meta device,
+    each leaf's fill value read off the factory call that made it, and
+    the block allocated and filled on ``device``.  A granite-8b server
+    cache at B = 128, C = 32768 is 2.4 GB a card on (16, 16), never the
+    whole 618 GB."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    fills: Dict[int, float] = {}
+    aten = torch.ops.aten
+
+    class _Fills(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten.zeros.default:
+                fills[id(out)] = 0.0
+            elif func is aten.full.default:
+                fills[id(out)] = float(args[1])
+            return out
+
+    with _Fills():
+        meta = build("meta")
+    pls = iter(tree_leaves_of(cache_placements(
+        meta, device_mesh, batch, mode=mode, use_model=use_model)))
+    coords = mesh_coords(device_mesh)
+
+    def place(t):
+        pl = next(pls)
+        if id(t) not in fills:
+            raise ValueError(f"a cache leaf of {tuple(t.shape)} has no "
+                             f"constant init")
+        spec = spec_of(pl, t.dim(), device_mesh)
+        block = local_shard(t, spec, device_mesh, coords)
+        local = torch.full(block.shape, fills[id(t)], dtype=t.dtype,
+                           device=device)
+        return DTensor.from_local(local, device_mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    return _map_cache(place, meta)
+
+
+def spec_of(pls, ndim: int, device_mesh) -> Spec:
+    """The spec of DTensor placements ``pls`` (``placements``' inverse)
+    over a tensor of ``ndim`` dims."""
+    names = tuple(device_mesh.mesh_dim_names)
+    spec: List[Any] = [None] * ndim
+    for name, pl in zip(names, pls):
+        if pl.is_shard():
+            d = pl.dim % ndim
+            spec[d] = name if spec[d] is None else (
+                (spec[d] if isinstance(spec[d], tuple) else (spec[d],))
+                + (name,))
+    return tuple(spec)
+
+
 def whole(t: torch.Tensor) -> torch.Tensor:
     """The whole tensor: a DTensor's ``full_tensor()`` (a collective every
     rank must join), else ``t``."""
@@ -711,7 +806,7 @@ def batch_local(fn, *ts: torch.Tensor):
                      redistribute_inputs=True)(*ts)
 
 
-def heads_local(fn, *ts: torch.Tensor, dim: int = 2):
+def heads_local(fn, *ts: torch.Tensor, dim: int = 2, outs: int = 1):
     """``fn(*ts)`` where ``fn`` works on each (batch row, head) alone: the
     batch at dim 0 and the heads at ``dim`` of every tensor.  DTensors
     run it in a ``local_map`` region placed as the first: its rows over
@@ -719,7 +814,8 @@ def heads_local(fn, *ts: torch.Tensor, dim: int = 2):
     divide it (else whole there); the output is placed so too.  DTensor's
     propagation of a product that merges the batch and the heads into one
     dim (an einsum's ``bmm``) searches its redistribute planner; the
-    region runs such products as local ops."""
+    region runs such products as local ops.  ``outs``: how many tensors
+    ``fn`` returns (each placed so)."""
     if not is_dtensor(ts[0]):
         return fn(*ts)
     from torch.distributed.tensor import Replicate, Shard
@@ -733,8 +829,44 @@ def heads_local(fn, *ts: torch.Tensor, dim: int = 2):
         pls[i] = Shard(dim) if all(t.shape[dim] % model == 0 for t in ts) \
             else Replicate()
     ins = tuple(list(pls) for _ in ts)
-    return local_map(fn, out_placements=list(pls), in_placements=ins,
+    out = list(pls) if outs == 1 else tuple(list(pls) for _ in range(outs))
+    return local_map(fn, out_placements=out, in_placements=ins,
                      in_grad_placements=ins, device_mesh=mesh,
+                     redistribute_inputs=True)(*ts)
+
+
+def model_region(fn, ts: Sequence[Any], specs: Sequence[Tuple[bool, Any]],
+                 out_specs: Sequence[Tuple[bool, Any]], rows_of):
+    """``fn(*ts)`` in a ``local_map`` region (forward only: a decode step)
+    on ``rows_of``'s mesh.  ``specs[i] = (rows, placement)``: tensor i
+    takes ``rows_of``'s batch split on the data axes where ``rows`` (else
+    whole there) and ``placement`` on ``model``; at ``model`` = 1 it keeps
+    its own placement there (no redistribution).  A plain tensor counts as
+    replicated.  ``out_specs`` place the outputs alike (one spec: ``fn``
+    returns one tensor)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = rows_of.device_mesh
+    names = list(mesh.mesh_dim_names)
+    rows = row_placements(rows_of)
+    mi = names.index("model") if "model" in names else None
+    one = mi is None or mesh.size(mi) == 1
+
+    def pls(spec, t=None):
+        has_rows, model_pl = spec
+        out = [rows[i] if has_rows else Replicate()
+               for i in range(len(names))]
+        if mi is not None:
+            out[mi] = t.placements[mi] if one and t is not None \
+                else model_pl
+        return out
+
+    ts = [t if is_dtensor(t) else DTensor.from_local(
+        t, mesh, [Replicate()] * len(names), run_check=False) for t in ts]
+    ins = tuple(pls(s, t) for s, t in zip(specs, ts))
+    outs = tuple(pls(s) for s in out_specs)
+    return local_map(fn, out_placements=outs if len(outs) > 1 else outs[0],
+                     in_placements=ins, device_mesh=mesh,
                      redistribute_inputs=True)(*ts)
 
 

@@ -50,6 +50,18 @@
 // weighting each split by exp(m_j - M) / L, then waits at a second
 // cluster.sync() so no block leaves while a peer still reads its shared
 // memory.  One launch, no scratch in device memory.
+//
+// The partial entry (`decode_attention_partial`) runs the same kernel on one
+// time slice of a cache split over ranks (flash-decode): the slice holds
+// global rows base .. base + C - 1, and row b attends to the entries with
+// base + t <= pos[b] (n_valid = clamp(pos[b] + 1 - base, 0, C); base = 0 is
+// the whole-cache kernel).  Its epilogue writes the slice's output in f32,
+// normalised by the slice's own sum L, and the log-sum-exp M + log(L) of
+// the scaled scores, so the ranks combine their partials in f32
+// (kernels/decode_attention.py `combine_partials`) and round to q's dtype
+// once, after the combine, as the reference's sharded program does.  A
+// cluster whose splits are all empty writes o = 0 and lse = -inf.  The
+// entry is a runtime branch of the same instantiations.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,7 +185,9 @@ template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads, G <= 4 ? 4 : 2)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ pos,
-                        T* __restrict__ out, int C, int Hkv, float scale) {
+                        T* __restrict__ out, int C, int Hkv, float scale,
+                        int base, float* __restrict__ o_part,
+                        float* __restrict__ lse) {
   constexpr int DP = padded_dim<D>();
   constexpr int TPP = DP / kEPT;         // threads per cache row
   constexpr int RPI = kThreads / TPP;    // rows in flight per pass
@@ -205,8 +219,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool has_cols = d0 < D;          // false only for columns >= D
   const int Hq = Hkv * G;
 
-  // this split's rows [r_begin, r_end) of the valid prefix
-  const int n_valid = min(pos[b] + 1, C);
+  // this split's rows [r_begin, r_end) of the valid prefix (of the slice
+  // base .. base + C - 1 of the global cache; base = 0 but for the partial
+  // entry)
+  const int n_valid = min(pos[b] + 1 - base, C);
   const int per = (max(n_valid, 0) + n_split - 1) / n_split;
   const int r_begin = min(split * per, max(n_valid, 0));
   const int r_end = min(r_begin + per, max(n_valid, 0));
@@ -414,8 +430,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       L += w * lj[j];
       o += w * aj[j];
     }
-    out[((size_t)b * Hq + h * G + g) * D + d] =
-        Elem<T>::from_float(L > 0.f ? o / L : 0.f);
+    const size_t row = (size_t)b * Hq + h * G + g;
+    if (lse == nullptr) {
+      out[row * D + d] = Elem<T>::from_float(L > 0.f ? o / L : 0.f);
+    } else {  // the partial entry: f32 output and log-sum-exp
+      o_part[row * D + d] = L > 0.f ? o / L : 0.f;
+      if (d == 0) lse[row] = L > 0.f ? M + logf(L) : -INFINITY;
+    }
   }
   cluster.sync();  // peers' shared memory stays alive until every read
 }
@@ -423,7 +444,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int G>
 int launch(const void* q, const void* k, const void* v, const int* pos,
            void* out, int B, int C, int Hkv, int n_split, float scale,
-           cudaStream_t stream) {
+           int base, float* o_part, float* lse, cudaStream_t stream) {
   auto kern = decode_attention_kernel<T, D, G>;
   constexpr size_t smem = ring_bytes<T, D>();
   if (smem > 48 * 1024) {  // above the default limit: ask once
@@ -449,7 +470,8 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, static_cast<T*>(out), C, Hkv, scale);
+      static_cast<const T*>(v), pos, static_cast<T*>(out), C, Hkv, scale,
+      base, o_part, lse);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -514,7 +536,26 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 float scale, void* stream) {
   if (!valid_split(n_split)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DECODE_DISPATCH(launch, q, k, v, pos, out, B, C, Hkv, n_split, scale, s)
+  DECODE_DISPATCH(launch, q, k, v, pos, out, B, C, Hkv, n_split, scale, 0,
+                  nullptr, nullptr, s)
+}
+
+// The partial entry: q (B, Hkv*G, D); k, v: (B, C, Hkv, D), one time slice
+// holding global cache rows base .. base + C - 1; pos: (B,) int32 global
+// positions.  Writes o_part (B, Hkv*G, D) f32, normalised by the slice's
+// own sum, and lse (B, Hkv*G) f32; a row with no valid entry in the slice
+// gets o = 0 and lse = -inf.  Other arguments as `decode_attention`.
+extern "C" int decode_attention_partial(const void* q, const void* k,
+                                        const void* v, const int* pos,
+                                        float* o_part, float* lse, int B,
+                                        int C, int Hkv, int G, int D,
+                                        int dtype, int n_split, int base,
+                                        float scale, void* stream) {
+  if (!valid_split(n_split) || o_part == nullptr || lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DECODE_DISPATCH(launch, q, k, v, pos, nullptr, B, C, Hkv, n_split, scale,
+                  base, o_part, lse, s)
 }
 
 // How many clusters of `n_split` blocks of the (dtype, D, G) kernel the card

@@ -14,6 +14,13 @@ The kernel splits the cache axis over the blocks of a thread-block
 cluster and combines their partials in shared memory, in one launch;
 ``n_split`` plans the split from the shapes alone (the host cannot read
 ``pos`` without waiting for the card).
+
+The partial entry (``decode_attention_partial``) runs the kernel on one
+time slice of a cache split over ranks: it returns the slice's output in
+f32, normalised by the slice's own sum, and its log-sum-exp, and
+``combine_partials`` joins the slices' partials (a list, or a rank's part
+and two all-reduces over a process group), casting to q's dtype once,
+after the combine, as the reference's sharded program rounds.
 """
 from __future__ import annotations
 
@@ -44,6 +51,10 @@ MIN_SPLIT_ROWS = 16
 KERNEL = CudaKernel(
     "decode_attention.cu", "decode_attention",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                  ctypes.c_void_p])
+PARTIAL = CudaKernel(
+    "decode_attention.cu", "decode_attention_partial",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                   ctypes.c_void_p])
 
 
@@ -104,6 +115,70 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, Hq, D).to(q.dtype)
 
 
+def decode_attention_partial_plain(q: torch.Tensor, k_slice: torch.Tensor,
+                                   v_slice: torch.Tensor, pos, base: int):
+    """q: (B, Hq, D); slices: (B, Cl, Hkv, D) holding global cache rows
+    ``base .. base + Cl - 1``; pos: scalar or (B,) global positions ->
+    (o (B, Hq, D) f32, lse (B, Hq) f32).
+
+    Row b attends to the slice entries with ``base + t <= pos[b]`` (for
+    pos >= 0 the ring mask too, as in ``decode_attention_plain``).  ``o``
+    is normalised by the slice's own sum and kept in f32, ``lse`` is
+    ``m + log(l)`` of the scaled scores; a row with no valid entry gets
+    o = 0 and lse = -inf.  Rounding points as the whole-cache version:
+    q in the cache dtype, f32 scores and sums, p rounded to the cache
+    dtype before the PV product."""
+    B, Hq, D = q.shape
+    Cl, Hkv = k_slice.shape[1], k_slice.shape[2]
+    G = Hq // Hkv
+    posv = pos_vector(pos, B, q.device).long()
+    qg = q.reshape(B, Hkv, G, D).to(k_slice.dtype)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(),
+                     k_slice.float()) / math.sqrt(D)
+    p, lse = slice_softmax(s, posv, base, v_slice.dtype)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v_slice.float())
+    return o.reshape(B, Hq, D), lse.reshape(B, Hq)
+
+
+def slice_softmax(s: torch.Tensor, pos: torch.Tensor, base: int, dtype):
+    """The softmax of one time slice's scores ``s`` (B, ..., Cl), f32, the
+    slice's entries global ``base ..``: entry t is valid where ``base + t
+    <= pos[b]``.  Returns (p normalised by the slice's own sum, rounded to
+    ``dtype`` and back to f32; lse (B, ...) = m + log(l)); a row with no
+    valid entry gets p = 0 and lse = -inf."""
+    idx = base + torch.arange(s.shape[-1], device=s.device)
+    valid = idx <= pos.reshape((-1,) + (1,) * (s.dim() - 1))
+    s = torch.where(valid, s, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    l = e.sum(dim=-1, keepdim=True)
+    p = (e / torch.where(l > 0, l, 1.0)).to(dtype).float()
+    lse = torch.where(l > 0, m + torch.log(l), -math.inf)
+    return p, lse[..., 0]
+
+
+def combine_partials(o_parts, lse_parts, group=None) -> torch.Tensor:
+    """Join the time slices' partials (``decode_attention_partial``) into
+    the whole cache's output, f32: ``sum_r w_r o_r / sum_r w_r`` with
+    ``w_r = exp(lse_r - max_r lse_r)``.  Either lists of every slice's
+    ``o`` (B, Hq, D) and ``lse`` (B, Hq), or, with a process ``group``,
+    this rank's part: one all-reduce MAX of ``lse`` over the group, then
+    ONE all-reduce SUM of ``[w o, w]`` packed as (B, Hq, D + 1)."""
+    if group is None:
+        o = torch.stack(list(o_parts))
+        lse = torch.stack(list(lse_parts))
+        mx = lse.amax(dim=0)
+        w = torch.exp(lse - torch.where(torch.isfinite(mx), mx, 0.0))
+        return (w[..., None] * o).sum(dim=0) / w.sum(dim=0)[..., None]
+    import torch.distributed as dist
+    mx = lse_parts.clone()
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(lse_parts - torch.where(torch.isfinite(mx), mx, 0.0))
+    packed = torch.cat([w[..., None] * o_parts, w[..., None]], dim=-1)
+    dist.all_reduce(packed, group=group)
+    return packed[..., :-1] / packed[..., -1:]
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, pos) -> torch.Tensor:
     """Launch the Hopper kernel on PyTorch's current stream, the cache
@@ -117,9 +192,47 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
                            splits: Optional[int]) -> torch.Tensor:
     """``decode_attention_cuda`` with the cache split over ``splits``
     blocks (1, 2, 4 or 8) whatever the shapes; None: as planned."""
+    splits = _check(q, k_cache, v_cache, splits)
+    B, Hq, D = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    posv = pos_vector(pos, B, q.device)
+    out = torch.empty_like(q)
+    KERNEL(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+           posv.data_ptr(), out.data_ptr(), B, C, Hkv, Hq // Hkv, D,
+           _DTYPES[q.dtype], splits, 1.0 / math.sqrt(D),
+           stream_handle(q.device))
+    return out
+
+
+def decode_attention_partial_cuda(q: torch.Tensor, k_slice: torch.Tensor,
+                                  v_slice: torch.Tensor, pos, base: int,
+                                  splits: Optional[int] = None):
+    """Launch the partial entry of the Hopper kernel on PyTorch's current
+    stream: ``decode_attention_partial_plain``'s (o, lse) from the kernel,
+    the slice split over ``splits`` blocks (None: as ``n_split`` plans).
+    Raises on any input it does not take; never falls back."""
+    splits = _check(q, k_slice, v_slice, splits)
+    B, Hq, D = q.shape
+    Cl, Hkv = k_slice.shape[1], k_slice.shape[2]
+    posv = pos_vector(pos, B, q.device)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+    PARTIAL(q.data_ptr(), k_slice.data_ptr(), v_slice.data_ptr(),
+            posv.data_ptr(), o.data_ptr(), lse.data_ptr(), B, Cl, Hkv,
+            Hq // Hkv, D, _DTYPES[q.dtype], splits, int(base),
+            1.0 / math.sqrt(D), stream_handle(q.device))
+    return o, lse
+
+
+def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           splits: Optional[int]) -> int:
+    """Raise on any operand the kernel does not take; the split count."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention kernel needs CUDA tensors, got "
                          f"{q.device}")
+    if any(type(t) is not torch.Tensor for t in (q, k_cache, v_cache)):
+        raise ValueError("decode_attention kernel takes plain tensors: a "
+                         "DTensor goes through kernels/ops.py's region")
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError("need q (B,Hq,D) and equal caches (B,C,Hkv,D), got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
@@ -148,16 +261,10 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if splits is None:
-        splits = n_split(B, Hkv, C)
-    elif splits not in SPLITS:
+        return n_split(B, Hkv, C)
+    if splits not in SPLITS:
         raise ValueError(f"splits must be one of {SPLITS}, got {splits}")
-    posv = pos_vector(pos, B, q.device)
-    out = torch.empty_like(q)
-    KERNEL(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-           posv.data_ptr(), out.data_ptr(), B, C, Hkv, G, D,
-           _DTYPES[q.dtype], splits, 1.0 / math.sqrt(D),
-           stream_handle(q.device))
-    return out
+    return splits
 
 
 def max_active_clusters(D: int, G: int, dtype: torch.dtype,

@@ -68,6 +68,9 @@ def monitor_combine_blocks(u, v, f, blocks: int, *, s: float,
     if u.device.type != "cuda":
         raise ValueError(f"monitor_combine kernel needs CUDA tensors, got "
                          f"{u.device}")
+    if any(type(t) is not torch.Tensor for t in (u, v, f)):
+        raise ValueError("monitor_combine kernel takes plain tensors: a "
+                         "DTensor goes through kernels/ops.py's region")
     n = u.shape[0]
     for name, t in (("u", u), ("v", v), ("f", f)):
         if t.dim() != 1 or t.shape[0] != n:

@@ -13,10 +13,13 @@ Two more kinds of operand, each found by one explicit check:
   ``shape_counters`` entry.  Nothing launches, and no plain version runs.
   A fake CUDA tensor reports ``is_cuda``, so the check comes first.
 - **DTensor** (a step on a ``DeviceMesh``, ``distributed/sharding.py``).
-  ``flash_attention`` and ``ssd_scan`` run in a ``local_map`` region that
-  states their operands' placements: batch rows over the data axes, heads
-  over ``model`` where the heads divide it.  Inside, the kernel (or its
-  plain version, or its shape function) sees this rank's local tensors.
+  ``flash_attention``, ``ssd_scan`` and ``decode_attention`` run in a
+  ``local_map`` region that states their operands' placements: batch rows
+  over the data axes, heads over ``model`` where the heads divide it, or,
+  for a decode cache split on its time axis, each rank's slice of the
+  cache (flash-decode: the partial entry and ``combine_partials``).
+  Inside, the kernel (or its plain version, or its shape function) sees
+  this rank's local tensors.
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ from torch._subclasses.fake_tensor import FakeTensor
 from torch.profiler import record_function
 
 from repro_torch.distributed.sharding import is_dtensor, row_placements
-from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention import (
+    combine_partials, decode_attention_cuda, decode_attention_partial_cuda,
+    decode_attention_partial_plain, decode_attention_plain, pos_vector)
 from repro_torch.kernels.flash_attention import (flash_attention_backward,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
@@ -80,6 +84,19 @@ def decode_attention_shape(q, k_cache, v_cache, pos):
     return o
 
 
+def decode_attention_partial_shape(q, k_slice, v_slice, pos, base):
+    """The partial entry's (o, lse) and counts (every slot of the slice
+    read)."""
+    B, Hq, D = q.shape
+    Cl, Hkv = k_slice.shape[1], k_slice.shape[2]
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+    _record("decode_attention_partial", 4.0 * B * Hq * Cl * D,
+            _nbytes(q, o, lse) + 2 * B * Cl * Hkv * D * k_slice.element_size()
+            + 4 * B)
+    return o, lse
+
+
 def monitor_combine_shape(u, v, f):
     n = u.shape[0]
     out = torch.empty(2 * n + 2, dtype=torch.float32, device=u.device)
@@ -111,6 +128,10 @@ def ssd_scan_shape(xdt, la, Bm, Cm, *, chunk: int = 128):
 
 
 def decode_attention(q, k_cache, v_cache, pos):
+    """q: (B, Hq, D); caches: (B, C, Hkv, D); pos: scalar or (B,) -> (B,
+    Hq, D) in q's dtype.  DTensor caches: ``_decode_region``."""
+    if is_dtensor(k_cache):
+        return _decode_region(q, k_cache, v_cache, pos)
     if shape_only(q):
         return decode_attention_shape(q, k_cache, v_cache, pos)
     if q.device.type == "cpu":
@@ -118,8 +139,23 @@ def decode_attention(q, k_cache, v_cache, pos):
     return decode_attention_cuda(q, k_cache, v_cache, pos)
 
 
+def decode_attention_partial(q, k_slice, v_slice, pos, base: int):
+    """One time slice's (o f32, lse f32) of a cache split over ranks, its
+    rows global ``base .. base + Cl - 1`` (``kernels/decode_attention.py``):
+    the shape function, the plain version or the kernel's partial entry."""
+    if shape_only(q):
+        return decode_attention_partial_shape(q, k_slice, v_slice, pos, base)
+    if q.device.type == "cpu":
+        return decode_attention_partial_plain(q, k_slice, v_slice, pos, base)
+    return decode_attention_partial_cuda(q, k_slice, v_slice, pos, base)
+
+
 def monitor_combine(u, v, f, *, s: float, threshold: float = 0.0,
                     margin: float = 0.25):
+    """(fhat, mask, counts) of (N,) scores.  DTensors: ``_combine_region``."""
+    if is_dtensor(u):
+        return _combine_region(u, v, f, s=s, threshold=threshold,
+                               margin=margin)
     if shape_only(u):
         return monitor_combine_shape(u, v, f)
     if u.device.type == "cpu":
@@ -175,7 +211,9 @@ def flash_attention(q, k, v, *, window: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def _on_model(pls: List[Any], mesh, placement) -> Tuple[Any, ...]:
+def on_model(pls: List[Any], mesh, placement) -> Tuple[Any, ...]:
+    """Placements ``pls`` (one per mesh dim) with ``placement`` on the
+    ``model`` dim, where the mesh has one."""
     names = list(mesh.mesh_dim_names)
     out = list(pls)
     if "model" in names:
@@ -183,7 +221,8 @@ def _on_model(pls: List[Any], mesh, placement) -> Tuple[Any, ...]:
     return tuple(out)
 
 
-def _model_size(mesh) -> int:
+def model_size(mesh) -> int:
+    """The size of the mesh's ``model`` dim (1 without one)."""
     names = list(mesh.mesh_dim_names)
     return mesh.size(names.index("model")) if "model" in names else 1
 
@@ -207,34 +246,146 @@ def _flash_region(q, k, v, window: int):
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
-    M = _model_size(mesh)
+    M = model_size(mesh)
     Hq, Hkv = q.shape[2], k.shape[2]
     q_split = Hq % M == 0
     kv_split = q_split and Hkv % M == 0
-    qp = _on_model(row_placements(q), mesh,
-                   Shard(2) if q_split else Replicate())
-    kvp = _on_model(row_placements(q), mesh,
-                    Shard(2) if kv_split else Replicate())
-    kv_grad = kvp if kv_split or not q_split else _on_model(
+    qp = on_model(row_placements(q), mesh,
+                  Shard(2) if q_split else Replicate())
+    kvp = on_model(row_placements(q), mesh,
+                   Shard(2) if kv_split else Replicate())
+    kv_grad = kvp if kv_split or not q_split else on_model(
         row_placements(q), mesh, Partial())
 
     def body(ql, kl, vl):
         if q_split and not kv_split:
-            heads = kv_heads_for(mesh.get_local_rank("model"), M, Hq, Hkv)
-            uniq = sorted(set(heads))
-            per = len(heads) // len(uniq)
-            if heads == [u for u in uniq for _ in range(per)]:
-                kl = kl.narrow(2, uniq[0], len(uniq)).contiguous()
-                vl = vl.narrow(2, uniq[0], len(uniq)).contiguous()
-            else:   # uneven groups: one kv head a q head
-                idx = torch.tensor(heads, device=kl.device)
-                kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+            kl, vl = _kv_heads(kl, vl, kv_heads_for(
+                mesh.get_local_rank("model"), M, Hq, Hkv))
         return FlashAttention.apply(ql, kl, vl, window)
 
     qp, kvp, kv_grad = list(qp), list(kvp), list(kv_grad)
     return local_map(body, out_placements=qp, in_placements=(qp, kvp, kvp),
                      in_grad_placements=(qp, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def as_dtensor(t, mesh):
+    """A plain tensor as a DTensor replicated on ``mesh`` (what
+    ``implicit_replication`` takes it for); a DTensor as it is."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def time_split(t) -> bool:
+    """Whether the DTensor cache ``t`` (B, C, ...) has its time axis (dim
+    1) split over a ``model`` dim wider than 1."""
+    from torch.distributed.tensor import Shard
+    names = list(t.device_mesh.mesh_dim_names)
+    return "model" in names and model_size(t.device_mesh) > 1 \
+        and t.placements[names.index("model")] == Shard(1)
+
+
+def model_placement(t):
+    """The DTensor ``t``'s placement on the ``model`` dim (Replicate where
+    the mesh has none)."""
+    from torch.distributed.tensor import Replicate
+    names = list(t.device_mesh.mesh_dim_names)
+    return t.placements[names.index("model")] if "model" in names \
+        else Replicate()
+
+
+def _decode_region(q, k, v, pos):
+    """decode_attention on a DeviceMesh: batch rows over the data axes, as
+    the cache's.  A cache split on its time axis over ``model``
+    (``cache_specs(mode="time")``): q comes whole on ``model`` (one
+    all-gather of a (B, Hq, D) row), each rank runs the partial entry on
+    its slice (``base = rank * C / M``), and ``combine_partials`` joins
+    them with two all-reduces over ``model``; the output is whole on
+    ``model`` and q's dtype.  Otherwise (``"heads"``, or a cache whole on
+    ``model``): the kernel runs on the rank's q heads where q's heads are
+    split (a cache split on its kv heads gives each rank exactly the kv
+    heads its q heads read; a cache split on head_dim comes whole, one
+    gather, as GSPMD gathers it; a whole cache gives each rank the kv
+    heads of ``kv_heads_for``), else on every head.  At ``model`` = 1
+    each operand keeps its placement and the whole kernel runs: no
+    partial, no collective."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k.device_mesh
+    M = model_size(mesh)
+    B, Hq = q.shape[:2]
+    Hkv = k.shape[2]
+    q = as_dtensor(q, mesh)
+    pos = as_dtensor(pos_vector(pos, B, k.to_local().device), mesh)
+    rows = row_placements(k)
+    if time_split(k):
+        qp = on_model(rows, mesh, Replicate())
+        kp = on_model(rows, mesh, Shard(1))
+        group = mesh.get_group("model")
+
+        def body(ql, kl, vl, pl):
+            base = mesh.get_local_rank("model") * kl.shape[1]
+            o, lse = decode_attention_partial(ql.contiguous(), kl, vl, pl,
+                                              base)
+            return combine_partials(o, lse, group).to(ql.dtype)
+    elif M == 1:
+        qp = on_model(rows, mesh, model_placement(q))
+        kp = on_model(rows, mesh, model_placement(k))
+
+        def body(ql, kl, vl, pl):
+            return decode_attention(ql, kl, vl, pl)
+    else:
+        kv_split = model_placement(k) == Shard(2)
+        q_split = kv_split or (model_placement(q) == Shard(1)
+                               and Hq % M == 0)
+        qp = on_model(rows, mesh, Shard(1) if q_split else Replicate())
+        kp = on_model(rows, mesh, Shard(2) if kv_split else Replicate())
+
+        def body(ql, kl, vl, pl):
+            if q_split and not kv_split:
+                kl, vl = _kv_heads(kl, vl, kv_heads_for(
+                    mesh.get_local_rank("model"), M, Hq, Hkv))
+            return decode_attention(ql.contiguous(), kl, vl, pl)
+    pp = list(rows)
+    qp, kp = list(qp), list(kp)
+    return local_map(body, out_placements=qp,
+                     in_placements=(qp, kp, kp, pp), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, pos)
+
+
+def _combine_region(u, v, f, *, s: float, threshold: float, margin: float):
+    """monitor_combine on a DeviceMesh: each rank combines its own rows
+    (split over the data axes, whole on ``model``); fhat and the mask come
+    back split as the rows, the two counts as partial sums over the data
+    axes that split the rows."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = u.device_mesh
+    rows = list(row_placements(u))
+    counts = [Partial() if pl.is_shard() else pl for pl in rows]
+    return local_map(
+        lambda a, b, c: monitor_combine(a, b, c, s=s, threshold=threshold,
+                                        margin=margin),
+        out_placements=(rows, rows, counts), in_placements=(rows,) * 3,
+        device_mesh=mesh, redistribute_inputs=True)(
+        u, as_dtensor(v, mesh), as_dtensor(f, mesh))
+
+
+def _kv_heads(kl, vl, heads: List[int]):
+    """The kv heads ``heads`` (one a q head, in q-head order) of local
+    caches (B, T, Hkv, D): a contiguous run of kv heads where each repeats
+    equally often (the rank's q heads then read them as groups), else one
+    kv head a q head."""
+    uniq = sorted(set(heads))
+    per = len(heads) // len(uniq)
+    if heads == [u for u in uniq for _ in range(per)]:
+        return (kl.narrow(2, uniq[0], len(uniq)).contiguous(),
+                vl.narrow(2, uniq[0], len(uniq)).contiguous())
+    idx = torch.tensor(heads, device=kl.device)
+    return kl.index_select(2, idx), vl.index_select(2, idx)
 
 
 def ssd_scan_fwd(xdt, la, Bm, Cm, *, chunk: int = 128):
@@ -297,14 +448,14 @@ def _ssd_region(xdt, la, Bm, Cm, chunk: int):
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = xdt.device_mesh
-    split = xdt.shape[2] % _model_size(mesh) == 0
+    split = xdt.shape[2] % model_size(mesh) == 0
     base = row_placements(xdt)
-    hp = _on_model(base, mesh, Shard(2) if split else Replicate())
-    bc = _on_model(base, mesh, Replicate())
-    bc_grad = _on_model(base, mesh, Partial()) if split else bc
+    hp = on_model(base, mesh, Shard(2) if split else Replicate())
+    bc = on_model(base, mesh, Replicate())
+    bc_grad = on_model(base, mesh, Partial()) if split else bc
     hp, bc, bc_grad = list(hp), list(bc), list(bc_grad)
     yp = hp
-    h_p = list(_on_model(base, mesh, Shard(1) if split else Replicate()))
+    h_p = list(on_model(base, mesh, Shard(1) if split else Replicate()))
     return local_map(lambda a, b, c, d: SSDScan.apply(a, b, c, d, chunk),
                      out_placements=(yp, h_p),
                      in_placements=(hp, hp, bc, bc),

@@ -13,7 +13,9 @@ local shards' ops) counts per device:
   (``kernels/ops.py``: a fake operand never reaches a kernel);
 - **bytes**: the inputs and outputs of every aten op that makes a
   tensor (views and allocations aside) and of every kernel.  An eager
-  step moves that much: nothing is fused;
+  step moves that much: nothing is fused.  A gather by index (``t[i]``)
+  and a scatter in place (``t[i] = v``, a decode step's cache write)
+  move the rows they touch and their indices, not the whole ``t``;
 - **collective bytes**: the result bytes of each collective, by kind;
 - **argument bytes**: the local blocks of the parameters, the optimizer
   moments (and masters) and the batch;
@@ -34,8 +36,14 @@ module (or a subprocess):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b \\
         --shape train_4k [--multi-pod] [--out results.jsonl]
 
-The decode shapes wait for the serve step on the model axis (ROADMAP
-queue 1, item 9b).
+The decode shapes (``decode_32k``, ``long_500k``) count the serve step
+(``launch/steps.py::make_serve_step``) on caches placed as a deployment
+holds them: the server cache split by ``cache_specs(mode=
+cfg.decode_cache_shard)``, the edge cache over the data axes only;
+their model FLOPs are ``2 * active * B``, one token a stream:
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b \
+        --shape decode_32k
 """
 from __future__ import annotations
 
@@ -63,12 +71,14 @@ from repro_torch.launch.mesh import abstract_production_mesh, device_mesh
 from repro_torch.launch.steps import step_and_specs
 from repro_torch.serving.mesh import C10D_NAMESPACES
 
-TRAIN_PREFILL = tuple(s.name for s in INPUT_SHAPES
-                      if s.kind in ("train", "prefill"))
+SHAPE_NAMES = tuple(s.name for s in INPUT_SHAPES)
 
 _ALLOCATING_NOTHING = {torch.ops.aten.empty.memory_format,
                        torch.ops.aten.empty_strided.default,
                        torch.ops.aten.empty_like.default}
+
+# ops that touch only the indexed rows of their first operand
+_BY_INDEX = {torch.ops.aten.index.Tensor, torch.ops.aten.index_put_.default}
 
 _KINDS = (("all_gather", "all-gather"), ("allgather", "all-gather"),
           ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
@@ -165,7 +175,11 @@ class CostCounter(TorchDispatchMode):
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
-        if func.namespace == "aten" and func not in _ALLOCATING_NOTHING \
+        if func in _BY_INDEX:   # the rows (out / values) twice, the indices
+            rows = out if func is torch.ops.aten.index.Tensor else args[2]
+            self.bytes += 2 * rows.numel() * rows.element_size() + sum(
+                t.numel() * t.element_size() for t in _tensors(args[1]))
+        elif func.namespace == "aten" and func not in _ALLOCATING_NOTHING \
                 and not func.is_view and _tensors(out):
             self.bytes += sum(t.numel() * t.element_size()
                               for t in _tensors((args, kwargs, out)))
@@ -235,7 +249,11 @@ def _active_params(model, cfg):
 
 
 def _model_flops(cfg, shape, model) -> float:
+    """6 active B S (train), 2 active B S (prefill), 2 active B (decode:
+    one token a stream), as the reference counts them."""
     active, _ = _active_params(model, cfg)
+    if shape.kind == "decode":
+        return 2.0 * active * shape.global_batch
     tokens = shape.global_batch * shape.seq_len
     return (6.0 if shape.kind == "train" else 2.0) * active * tokens
 
@@ -305,8 +323,8 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, help="arch id (default: all)")
-    ap.add_argument("--shape", default=None, choices=TRAIN_PREFILL,
-                    help="shape name (default: train_4k and prefill_32k)")
+    ap.add_argument("--shape", default=None, choices=SHAPE_NAMES,
+                    help="shape name (default: all four)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="the SMOKE configs (default: FULL)")
@@ -314,7 +332,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else registry.names()
-    shapes = [args.shape] if args.shape else list(TRAIN_PREFILL)
+    shapes = [args.shape] if args.shape else list(SHAPE_NAMES)
     results = []
     for a in archs:
         for s in shapes:

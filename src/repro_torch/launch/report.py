@@ -95,6 +95,30 @@ def dryrun_table(recs: List[Dict]) -> str:
     return "\n".join(rows)
 
 
+def shape_table(recs: List[Dict]) -> str:
+    """One row an arch, one column a shape of SHAPE_ORDER: each pair's
+    compute / memory / collective terms and its bottleneck (a pair not
+    counted: a dash; a failed one: FAIL)."""
+    by = {(r.get("arch"), r.get("shape")): r for r in recs}
+    archs = sorted({r.get("arch") for r in recs if r.get("arch")})
+    rows = ["| arch | " + " | ".join(SHAPE_ORDER) + " |",
+            "|---|" + "---|" * len(SHAPE_ORDER)]
+    for a in archs:
+        cells = []
+        for shape in SHAPE_ORDER:
+            r = by.get((a, shape))
+            if r is None:
+                cells.append("—")
+            elif r.get("status") == "FAIL":
+                cells.append("FAIL")
+            else:
+                cells.append(f"{_ms(r['compute_s'])} / {_ms(r['memory_s'])}"
+                             f" / {_ms(r['collective_s'])} "
+                             f"**{r['bottleneck']}**")
+        rows.append(f"| {a} | " + " | ".join(cells) + " |")
+    return "\n".join(rows)
+
+
 def summarize(recs: List[Dict]) -> str:
     ok = [r for r in recs if r.get("status") == "ok"]
     fails = [r for r in recs if r.get("status") != "ok"]
@@ -137,6 +161,8 @@ def main() -> None:
         print(summarize(recs))
         print()
         print(roofline_table(recs))
+        print("\ncompute / memory / collective per shape:\n")
+        print(shape_table(recs))
         if mesh_kind == "single_pod":
             print("\nHillclimb candidates:")
             for n in pick_hillclimb(recs):

@@ -20,15 +20,19 @@ hybrid) through ``collab_forward``.
 
 Each step runs unchanged on a model placed on a DeviceMesh
 (``distributed.sharding.distribute_collab``, DTensor parameters and
-batch).  ``step_and_specs`` builds such a model, its optimizer state and
-a batch from shapes alone, for the dry run (``launch/dryrun.py``): call
-it under a ``FakeTensorMode`` over a fake process group
-(``launch.mesh.device_mesh(..., backend="fake")``).  Its decode shapes
-(the serve step with caches split on the model axis) are ROADMAP queue
-1, item 9b.
+batch), and the serve and monitor steps on placed caches
+(``models.api.init_cache(..., device_mesh=)``): the server cache split
+by ``cache_specs(mode=cfg.decode_cache_shard)`` (``"time"``: its time
+axis over ``model``, decode attention combined across ranks), the edge
+cache over the data axes only, so the monitor step needs no collective.
+``step_and_specs`` builds such a model, its optimizer state or caches
+and a batch from shapes alone, for the dry run (``launch/dryrun.py``):
+call it under a ``FakeTensorMode`` over a fake process group
+(``launch.mesh.device_mesh(..., backend="fake")``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -77,6 +81,19 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     return prefill_step
 
 
+@contextlib.contextmanager
+def _decoding(model):
+    """Inference mode for an unplaced model; on a DeviceMesh no_grad and
+    ``placed_region`` (DTensor's dispatch cannot run under inference
+    mode)."""
+    if mesh_of(model) is None:
+        with torch.inference_mode():
+            yield
+        return
+    with torch.no_grad(), placed_region(model):
+        yield
+
+
 def _edge_u(model, cfg: ArchConfig, hidden_t: torch.Tensor) -> torch.Tensor:
     hd = model.u_head
     feats = torch.tanh(linear(hd.w_feat, hidden_t.float()))
@@ -92,19 +109,20 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
     ecfg = deco.edge_arch(cfg)
     m = cfg.monitor
 
-    @torch.inference_mode()
     def serve_step(model, server_cache, edge_cache, tokens,
                    pos) -> Dict[str, object]:
-        logits, h = model_api.decode_step(model.server, cfg, server_cache,
-                                          tokens, pos)
-        v = linear(model.v_head, h.float())[..., 0]
-        _, eh = model_api.decode_step(model.edge, ecfg, edge_cache, tokens,
-                                      pos, with_logits=False)
-        u = _edge_u(model, cfg, eh)
-        fhat_all, mask, _ = ops.monitor_combine(
-            u, v, u, s=m.s, threshold=m.threshold, margin=m.trigger_margin)
-        return {"logits": logits, "u": u,
-                "fhat": torch.where(mask > 0, fhat_all, u), "mask": mask,
+        with _decoding(model):
+            logits, h = model_api.decode_step(model.server, cfg,
+                                              server_cache, tokens, pos)
+            v = linear(model.v_head, h.float())[..., 0]
+            _, eh = model_api.decode_step(model.edge, ecfg, edge_cache,
+                                          tokens, pos, with_logits=False)
+            u = _edge_u(model, cfg, eh)
+            fhat_all, mask, _ = ops.monitor_combine(
+                u, v, u, s=m.s, threshold=m.threshold,
+                margin=m.trigger_margin)
+            fhat = torch.where(mask > 0, fhat_all, u)
+        return {"logits": logits, "u": u, "fhat": fhat, "mask": mask,
                 "server_cache": server_cache, "edge_cache": edge_cache}
 
     return serve_step
@@ -115,11 +133,12 @@ def make_monitor_step(cfg: ArchConfig) -> Callable:
     edge_cache, tokens, pos) -> u and the edge cache (in place)."""
     ecfg = deco.edge_arch(cfg)
 
-    @torch.inference_mode()
     def monitor_step(model, edge_cache, tokens, pos) -> Dict[str, object]:
-        _, eh = model_api.decode_step(model.edge, ecfg, edge_cache, tokens,
-                                      pos, with_logits=False)
-        return {"u": _edge_u(model, cfg, eh), "edge_cache": edge_cache}
+        with _decoding(model):
+            _, eh = model_api.decode_step(model.edge, ecfg, edge_cache,
+                                          tokens, pos, with_logits=False)
+            u = _edge_u(model, cfg, eh)
+        return {"u": u, "edge_cache": edge_cache}
 
     return monitor_step
 
@@ -157,8 +176,6 @@ def batch_specs(cfg: ArchConfig, shape, device_mesh) -> Dict[str, object]:
     """The model inputs of ``shape`` (a train or prefill ``ShapeConfig``)
     as DTensors cut by ``batch_spec``, uninitialised (the reference's
     ``input_specs``)."""
-    from torch.distributed.tensor import DTensor
-    from repro_torch.distributed import sharding as shd
     B, S = shape.global_batch, shape.seq_len
     tok = (B, S, cfg.n_codebooks) if cfg.family == "audio" else (B, S)
     leaves = {"tokens": (tok, torch.int32)}
@@ -168,30 +185,46 @@ def batch_specs(cfg: ArchConfig, shape, device_mesh) -> Dict[str, object]:
     if shape.kind == "train":
         leaves["labels"] = (tok, torch.int32)
         leaves["monitor_target"] = ((B, S), torch.float32)
-    coords = shd.mesh_coords(device_mesh)
-    out = {}
-    for key, (shp, dtype) in leaves.items():
-        spec = shd.batch_spec(device_mesh, shp, B)
-        whole = torch.empty(shp, device="meta")
-        block = shd.local_shard(whole, spec, device_mesh, coords)
-        local = torch.empty(block.shape, dtype=dtype,
-                            device=device_mesh.device_type)
-        out[key] = DTensor.from_local(local, device_mesh,
-                                      shd.placements(spec, device_mesh),
-                                      run_check=False, shape=shp,
-                                      stride=whole.stride())
-    return out
+    return {key: _batch_leaf(shp, dtype, B, device_mesh)
+            for key, (shp, dtype) in leaves.items()}
+
+
+def _batch_leaf(shp, dtype, B: int, device_mesh):
+    """An uninitialised DTensor of global shape ``shp`` cut by
+    ``batch_spec``: this rank's block on the mesh's device type."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shd
+    spec = shd.batch_spec(device_mesh, shp, B)
+    whole = torch.empty(shp, device="meta")
+    block = shd.local_shard(whole, spec, device_mesh,
+                            shd.mesh_coords(device_mesh))
+    local = torch.empty(block.shape, dtype=dtype,
+                        device=device_mesh.device_type)
+    return DTensor.from_local(local, device_mesh,
+                              shd.placements(spec, device_mesh),
+                              run_check=False, shape=shp,
+                              stride=whole.stride())
 
 
 def step_and_specs(cfg: ArchConfig, shape, device_mesh) -> Tuple[Callable,
                                                                  Tuple]:
     """(step_fn, args) of ``shape``'s kind on ``device_mesh`` from shapes
     alone: the train step (AdamW at lr 3e-4, its moments placed by
-    ``opt_specs(zero1=cfg.zero1)``) over (model, opt_state, batch), or
-    the prefill step over (model, batch)."""
+    ``opt_specs(zero1=cfg.zero1)``) over (model, opt_state, batch), the
+    prefill step over (model, batch), or the serve step over (model,
+    server_cache, edge_cache, tokens, pos), as the reference builds them
+    (``repro/launch/steps.py:120-130``): the server cache at
+    ``decode_capacity(cfg, S)`` placed by ``cache_specs(mode=
+    cfg.decode_cache_shard)``, the edge cache at ``min(S,
+    EDGE_CACHE_LEN)`` over the data axes only, tokens (B,) (or (B, K)
+    for audio) cut by ``batch_spec``, and the last position ``S - 1``
+    (every slot valid), a plain scalar: replicated."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.training.optimizer import AdamW, keeps_masters
     model = placed_shapes(cfg, device_mesh)
+    if shape.kind == "decode":
+        return make_serve_step(cfg), (model, *decode_specs(cfg, shape,
+                                                           device_mesh))
     batch = batch_specs(cfg, shape, device_mesh)
     if shape.kind == "train":
         opt = AdamW(lr=3e-4)
@@ -201,6 +234,20 @@ def step_and_specs(cfg: ArchConfig, shape, device_mesh) -> Tuple[Callable,
         return make_train_step(cfg, opt), (model, state, batch)
     if shape.kind == "prefill":
         return make_prefill_step(cfg), (model, batch)
-    raise NotImplementedError(
-        f"the {shape.name} dry run needs the serve step with its caches "
-        f"split on the model axis (ROADMAP queue 1, item 9b)")
+    raise ValueError(f"unknown shape kind {shape.kind!r}")
+
+
+def decode_specs(cfg: ArchConfig, shape, device_mesh) -> Tuple:
+    """(server_cache, edge_cache, tokens, pos) of a decode ``shape`` on
+    ``device_mesh`` (``step_and_specs``); the caches zeroed, tokens
+    uninitialised."""
+    B, S = shape.global_batch, shape.seq_len
+    dev = device_mesh.device_type
+    server = model_api.init_cache(cfg, B, S, dev, device_mesh=device_mesh)
+    edge = model_api.init_cache(deco.edge_arch(cfg), B,
+                                min(S, EDGE_CACHE_LEN), dev,
+                                device_mesh=device_mesh, use_model=False)
+    shp = (B, cfg.n_codebooks) if cfg.family == "audio" else (B,)
+    tokens = _batch_leaf(shp, torch.int32, B, device_mesh)
+    pos = torch.full((), S - 1, dtype=torch.int32, device=dev)
+    return server, edge, tokens, pos

@@ -33,8 +33,21 @@ def init_model(cfg: ArchConfig, gen: torch.Generator, device=None):
     return _impl(cfg).init_lm(cfg, gen, device)
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
-    return _impl(cfg).init_cache(cfg, batch, seq_len, device)
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None, *,
+               device_mesh=None, use_model: bool = True):
+    """The decode cache of ``batch`` streams over ``seq_len`` tokens on
+    ``device`` (``None``: the card).  With a ``device_mesh`` every leaf is
+    a DTensor placed by ``cache_specs(mode=cfg.decode_cache_shard)`` (data
+    axes only with ``use_model=False``: the edge cache), and ``device``
+    holds only this rank's block (``distributed.sharding.placed_cache``)."""
+    if device_mesh is None:
+        return _impl(cfg).init_cache(cfg, batch, seq_len, device)
+    from repro_torch.distributed.sharding import placed_cache
+    from repro_torch.nn.module import resolve_device
+    return placed_cache(
+        lambda d: _impl(cfg).init_cache(cfg, batch, seq_len, d),
+        resolve_device(device), device_mesh, batch,
+        mode=cfg.decode_cache_shard, use_model=use_model)
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens_t, pos, *,

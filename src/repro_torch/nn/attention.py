@@ -21,6 +21,14 @@ is ``kernels.ops.decode_attention``: the reference's XLA form
 (``kernels/decode_attention.py``), the Hopper kernel for CUDA ones.  Rows with
 ``active[b] == False`` keep their old slot contents, so their cache rows
 come back bit-unchanged, as the reference's masked decode guarantees.
+
+On a DeviceMesh the caches are DTensors placed by ``cache_specs``.  A
+cache split on its time axis over ``model`` (``decode_cache_shard =
+"time"``) is written by the one rank whose slice holds the slot
+(``write_rows``), and attended to by flash-decode: each rank scores its
+slice and the ranks combine their softmax partials
+(``kernels/ops.py::_decode_region``; MLA's absorbed products in
+``_mla_region``).
 """
 from __future__ import annotations
 
@@ -30,10 +38,11 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from repro_torch.distributed.sharding import (heads_local, merge_heads,
+from repro_torch.distributed.sharding import (heads_local, is_dtensor,
+                                              merge_heads, row_placements,
                                               split_heads)
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import NEG_INF
+from repro_torch.kernels.decode_attention import NEG_INF, slice_softmax
 from repro_torch.nn.module import Linear, linear
 from repro_torch.nn.rotary import rotate
 
@@ -88,11 +97,44 @@ def write_rows(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor,
                active: Optional[torch.Tensor]) -> None:
     """cache[b, slot[b]] = new[b] for every row b where ``active`` (all rows
     when None); other rows keep their slot contents bit-for-bit."""
+    if is_dtensor(cache):
+        return _write_placed(cache, slot, new, active)
     rows = torch.arange(cache.shape[0], device=cache.device)
     if active is not None:
         keep = active.reshape((-1,) + (1,) * (new.dim() - 1))
         new = torch.where(keep, new, cache[rows, slot])
     cache[rows, slot] = new
+
+
+def _write_placed(cache, slot, new, active) -> None:
+    """``write_rows`` on a DTensor cache (B, C, ...), in place on each
+    rank's block: the new rows (B, ...) placed as the cache's rows (whole
+    on a mesh dim that splits the cache's time axis), the slots and the
+    mask as its batch rows.  A time split over ``model``: the slot is
+    global, and only the rank whose slice holds it writes, at its local
+    index; the other ranks write their old contents back."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    pls = cache.placements
+    row_pls = [Shard(pl.dim - 1) if pl.is_shard() and pl.dim >= 2 else
+               pl if pl.is_shard() and pl.dim == 0 else Replicate()
+               for pl in pls]
+    rows = row_placements(cache)
+
+    def local(t, placements):
+        t = ops.as_dtensor(t, mesh)
+        return t.redistribute(mesh, placements).to_local()
+
+    block = cache.to_local()
+    new_l, slot_l = local(new, row_pls), local(slot, rows)
+    act = None if active is None else local(active, rows)
+    if ops.time_split(cache):
+        Cl = block.shape[1]
+        base = mesh.get_local_rank("model") * Cl
+        mine = (slot_l >= base) & (slot_l < base + Cl)
+        act = mine if act is None else act & mine
+        slot_l = torch.clamp(slot_l - base, 0, Cl - 1)
+    write_rows(block, slot_l, new_l, act)
 
 
 def gqa_decode(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
@@ -103,11 +145,13 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
     """x: (B, d_model), one token per row; pos: (B,) int32; ``rope``: the
     step's (cos, sin) from ``nn.rotary.rope_angles(pos, ...)``; caches:
     (B, C, Hkv, D), updated in place.  Returns y (B, d_model)."""
-    B = x.shape[0]
     C = cache_k.shape[1]
-    q = linear(p.wq, x, compute_dtype=compute_dtype).reshape(B, n_heads, head_dim)
-    k = linear(p.wk, x, compute_dtype=compute_dtype).reshape(B, n_kv, head_dim)
-    v = linear(p.wv, x, compute_dtype=compute_dtype).reshape(B, n_kv, head_dim)
+    q = split_heads(linear(p.wq, x, compute_dtype=compute_dtype), n_heads,
+                    head_dim)
+    k = split_heads(linear(p.wk, x, compute_dtype=compute_dtype), n_kv,
+                    head_dim)
+    v = split_heads(linear(p.wv, x, compute_dtype=compute_dtype), n_kv,
+                    head_dim)
     q = rotate(q, *rope)
     k = rotate(k, *rope)
     # the reference's dynamic_update_slice clamps an out-of-range start
@@ -116,8 +160,7 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache_k: torch.Tensor,
     write_rows(cache_k, slot, k.to(cache_k.dtype), active)
     write_rows(cache_v, slot, v.to(cache_v.dtype), active)
     o = ops.decode_attention(q, cache_k, cache_v, pos)
-    return linear(p.wo, o.reshape(B, n_heads * head_dim),
-                  compute_dtype=compute_dtype)
+    return linear(p.wo, merge_heads(o), compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -170,12 +213,10 @@ def cross_attn_decode(p: GQA, x: torch.Tensor, k_img: torch.Tensor,
     """One token per row against precomputed image K/V (B, T, Hkv, D):
     the decode attention kernel at position T - 1, so every image row is
     valid (ref ``models/transformer.py:298``).  Returns (B, d_model)."""
-    B = x.shape[0]
-    q = linear(p.wq, x, compute_dtype=compute_dtype).reshape(B, n_heads,
-                                                              head_dim)
+    q = split_heads(linear(p.wq, x, compute_dtype=compute_dtype), n_heads,
+                    head_dim)
     o = ops.decode_attention(q, k_img, v_img, k_img.shape[1] - 1)
-    return linear(p.wo, o.reshape(B, n_heads * head_dim),
-                  compute_dtype=compute_dtype)
+    return linear(p.wo, merge_heads(o), compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +295,6 @@ def mla_decode(p: MLA, x: torch.Tensor, ckv: torch.Tensor,
     reference's: the latents and the rope keys are read in the cache
     dtype, every product sums in f32.  Tensor ops: the reference runs
     these einsums outside any Pallas kernel."""
-    B = x.shape[0]
     C = ckv.shape[1]
     q_nope, q_rope = _mla_q(p, x, n_heads=n_heads, qk_nope=qk_nope,
                             qk_rope=qk_rope, rope=rope,
@@ -265,20 +305,82 @@ def mla_decode(p: MLA, x: torch.Tensor, ckv: torch.Tensor,
     slot = torch.clamp(pos, 0, C - 1).long()
     write_rows(ckv, slot, ckv_t.to(ckv.dtype), active)
     write_rows(krope, slot, krope_t.to(krope.dtype), active)
-    wkv = p.wkv_b.w.to(compute_dtype).reshape(kv_lora, n_heads,
-                                              qk_nope + v_dim)
+    wkv = split_heads(p.wkv_b.w.to(compute_dtype), n_heads, qk_nope + v_dim)
     wk, wv = wkv[..., :qk_nope].float(), wkv[..., qk_nope:].float()
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope.float(), wk)   # (B, H, r)
     scale = 1.0 / math.sqrt(qk_nope + qk_rope)
-    s = (torch.einsum("bhr,btr->bht", q_lat.to(ckv.dtype).float(),
-                      ckv.float())
-         + torch.einsum("bhr,btr->bht", q_rope.to(krope.dtype).float(),
-                        krope.float())) * scale
-    valid = torch.arange(C, device=x.device)[None, :] <= pos[:, None].long()
+    q_lat, q_rope = q_lat.to(ckv.dtype), q_rope.to(krope.dtype)
+    if is_dtensor(ckv):
+        o_lat = _mla_region(q_lat, q_rope, ckv, krope, pos, scale)
+    else:
+        o_lat = _mla_attend(q_lat, q_rope, ckv, krope, pos, scale)
+    o = torch.einsum("bhr,rhv->bhv", o_lat, wv)
+    return linear(p.wo, merge_heads(o.to(compute_dtype)),
+                  compute_dtype=compute_dtype)
+
+
+def _mla_scores(q_lat, q_rope, ckv, krope, scale):
+    return (torch.einsum("bhr,btr->bht", q_lat.float(), ckv.float())
+            + torch.einsum("bhr,btr->bht", q_rope.float(),
+                           krope.float())) * scale
+
+
+def _mla_attend(q_lat, q_rope, ckv, krope, pos, scale) -> torch.Tensor:
+    """The absorbed attention over the whole latent cache (B, C, r): f32
+    scores of cache-dtype operands, the softmax, p rounded to the cache
+    dtype, o_lat (B, H, r) f32 (ref :330-338)."""
+    C = ckv.shape[1]
+    s = _mla_scores(q_lat, q_rope, ckv, krope, scale)
+    valid = torch.arange(C, device=s.device)[None, :] <= pos[:, None].long()
     s = torch.where(valid[:, None, :], s, NEG_INF)
     prob = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bht,btr->bhr", prob.to(ckv.dtype).float(),
-                         ckv.float())
-    o = torch.einsum("bhr,rhv->bhv", o_lat, wv)
-    return linear(p.wo, o.reshape(B, n_heads * v_dim).to(compute_dtype),
-                  compute_dtype=compute_dtype)
+    return torch.einsum("bht,btr->bhr", prob.to(ckv.dtype).float(),
+                        ckv.float())
+
+
+def _mla_partial(q_lat, q_rope, ckv, krope, pos, scale, base: int):
+    """``_mla_attend`` over one time slice (global rows ``base ..``):
+    (o_lat f32 normalised by the slice's own sum, lse), the slice's
+    partial as ``decode_attention_partial_plain`` forms it."""
+    s = _mla_scores(q_lat, q_rope, ckv, krope, scale)
+    prob, lse = slice_softmax(s, pos.long(), base, ckv.dtype)
+    return torch.einsum("bht,btr->bhr", prob, ckv.float()), lse
+
+
+def _mla_region(q_lat, q_rope, ckv, krope, pos, scale) -> torch.Tensor:
+    """The absorbed attention on a DeviceMesh, rows over the data axes as
+    the cache's.  Latent and rope caches split on their time axis over
+    ``model``: q whole on ``model``, each rank's partial over its slice,
+    joined by ``combine_partials`` (two all-reduces); o_lat whole on
+    ``model``.  Otherwise the caches come whole (gathered where the
+    ``"heads"`` rule split their last dim) and each rank attends with its
+    q heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ckv.device_mesh
+    rows = row_placements(ckv)
+    q_lat = ops.as_dtensor(q_lat, mesh)
+    pos = ops.as_dtensor(pos, mesh)
+    if ops.time_split(ckv):
+        qp = list(ops.on_model(rows, mesh, Replicate()))
+        cp = list(ops.on_model(rows, mesh, Shard(1)))
+        group = mesh.get_group("model")
+
+        def body(ql, qr, cl, kl, pl):
+            base = mesh.get_local_rank("model") * cl.shape[1]
+            o, lse = _mla_partial(ql, qr, cl, kl, pl, scale, base)
+            return ops.combine_partials(o, lse, group)
+    else:
+        M = ops.model_size(mesh)
+        keep = M == 1 or ops.model_placement(q_lat) == Shard(1)
+        qp = list(ops.on_model(rows, mesh, ops.model_placement(q_lat)
+                               if keep else Replicate()))
+        cp = list(ops.on_model(rows, mesh, ops.model_placement(ckv)
+                               if M == 1 else Replicate()))
+
+        def body(ql, qr, cl, kl, pl):
+            return _mla_attend(ql, qr, cl, kl, pl, scale)
+    return local_map(body, out_placements=qp,
+                     in_placements=(qp, qp, cp, cp, list(rows)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q_lat, q_rope, ckv, krope, pos)

@@ -12,7 +12,10 @@ Hopper kernel for CUDA ones.
 
 Decode writes the layer's ``SSMCache`` in place, where the reference
 returns a new one; rows with ``active[b] == False`` keep their state and
-conv tails bit-unchanged.
+conv tails bit-unchanged.  On a DeviceMesh the recurrence runs in a
+region of each rank's heads (``_step_region``): the state split on its
+heads over ``model`` (``cache_specs(mode="time")`` splits the axis after
+the batch), the conv tails whole there.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.distributed.sharding import (data_axes, is_dtensor,
-                                              merge_heads, split_heads)
+                                              merge_heads, model_region,
+                                              split_heads)
 from repro_torch.kernels import ops
 from repro_torch.nn.module import (Linear, linear, normal_, param,
                                    resolve_device, softplus)
@@ -182,34 +186,83 @@ def mamba2_decode(p: Mamba2, x: torch.Tensor, cache: SSMCache, *,
     """x: (B, d_model), one token per row; ``cache``: this layer's state
     (B, H, P, N) and conv tails, updated in place; ``active``: (B,) bool,
     rows whose state commits (all when None).  Returns y (B, d_model)."""
-    B, d = x.shape
-    d_in, H, P, N = ssm_dims(d, expand, state, head_p)
+    H = ssm_dims(x.shape[-1], expand, state, head_p)[1]
     z = linear(p.w_z, x, compute_dtype=compute_dtype)
     xs = linear(p.w_x, x, compute_dtype=compute_dtype)
     Bs = linear(p.w_B, x, compute_dtype=compute_dtype)
     Cs = linear(p.w_C, x, compute_dtype=compute_dtype)
     dt = linear(p.w_dt, x, compute_dtype=compute_dtype)
-
-    def conv_step(tail, v_t, c: CausalConv):
-        seq = torch.cat([tail, v_t[:, None].float()], dim=1)
-        y = torch.einsum("bkc,kc->bc", seq, c.w.float())
-        tail.copy_(_keep_inactive(seq[:, 1:], tail, active))
-        return F.silu(y + c.b.float())
-
-    xi = conv_step(cache.conv_x, xs, p.conv_x).reshape(B, H, P)
-    Bm = conv_step(cache.conv_B, Bs, p.conv_B)
-    Cm = conv_step(cache.conv_C, Cs, p.conv_C)
-    dt = softplus(dt.float() + p.dt_bias[None, :])
-    A = -torch.exp(p.A_log)
-    a = torch.exp(dt * A[None, :])  # (B, H)
-    h = (cache.h * a[:, :, None, None]
-         + torch.einsum("bn,bhp->bhpn", Bm, xi * dt[..., None]))
-    cache.h.copy_(_keep_inactive(h, cache.h, active))
-    y = torch.einsum("bn,bhpn->bhp", Cm, h) + p.D[None, :, None] * xi
-    y = y.reshape(B, d_in) * F.silu(z.float())
-    y = y * p.norm_scale.float()[None, :]
+    args = (xs, Bs, Cs, dt, z, cache.conv_x, cache.conv_B, cache.conv_C,
+            cache.h, p.conv_x.w, p.conv_x.b, p.conv_B.w, p.conv_B.b,
+            p.conv_C.w, p.conv_C.b, p.dt_bias, p.A_log, p.D, p.norm_scale)
+    if is_dtensor(cache.h):
+        y, *new = _step_region(args, H)
+    else:
+        y, *new = _ssm_step(*args)
+    for old, val in zip((cache.conv_x, cache.conv_B, cache.conv_C, cache.h),
+                        new):
+        old.copy_(_keep_inactive(val, old, active))
     return linear(p.out_proj, y.to(compute_dtype),
                   compute_dtype=compute_dtype)
+
+
+def _ssm_step(xs, Bs, Cs, dt, z, tail_x, tail_B, tail_C, h, wx, bx, wB, bB,
+              wC, bC, dt_bias, A_log, Dp, norm_scale, *, lo: int = 0):
+    """One recurrent step from the projections: the three conv tails
+    (whole over their channels), the heads of ``h`` (B, H, P, N) and the
+    per-head parameters the x stream's conv weights ``wx`` (K, H * P)
+    cover, its channels from ``lo`` of the whole tail.  Returns (y (B, H
+    * P) f32, the new tails, the new state)."""
+
+    def conv(tail, v_t, w, b, lo=0):
+        seq = torch.cat([tail, v_t[:, None].float()], dim=1)
+        y = torch.einsum("bkc,kc->bc", seq[..., lo:lo + w.shape[1]],
+                         w.float())
+        return F.silu(y + b.float()), seq[:, 1:]
+
+    xi, tx = conv(tail_x, xs, wx, bx, lo)
+    Bm, tB = conv(tail_B, Bs, wB, bB)
+    Cm, tC = conv(tail_C, Cs, wC, bC)
+    B, H = dt.shape
+    xi = xi.reshape(B, H, -1)
+    dt = softplus(dt.float() + dt_bias[None, :])
+    A = -torch.exp(A_log)
+    a = torch.exp(dt * A[None, :])  # (B, H)
+    h = (h * a[:, :, None, None]
+         + torch.einsum("bn,bhp->bhpn", Bm, xi * dt[..., None]))
+    y = torch.einsum("bn,bhpn->bhp", Cm, h) + Dp[None, :, None] * xi
+    y = y.reshape(B, -1) * F.silu(z.float())
+    y = y * norm_scale.float()[None, :]
+    return y, tx, tB, tC, h
+
+
+def _step_region(args, H: int):
+    """``_ssm_step`` on a DeviceMesh: batch rows over the data axes, each
+    rank's heads over ``model`` where they divide it (its state, dt, z
+    and per-head parameters, the x conv's weights on its channels), the
+    x stream gathered (one all-gather of a (B, d_in) row) so every rank
+    keeps the whole conv tails.  Heads that do not divide ``model`` run
+    whole on every rank.  The new state comes back on the rank's heads,
+    the tails whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = args[8].device_mesh
+    M = ops.model_size(mesh)
+    split = H % M == 0
+    R = Replicate()
+    S0, S1 = (Shard(0), Shard(1)) if split else (R, R)
+    rowed = [(True, R), (True, R), (True, R), (True, S1), (True, S1),
+             (True, R), (True, R), (True, R), (True, S1)]
+    params = [(False, S1), (False, S0), (False, R), (False, R), (False, R),
+              (False, R), (False, S0), (False, S0), (False, S0), (False, S0)]
+    outs = [(True, S1), (True, R), (True, R), (True, R), (True, S1)]
+
+    def body(*local):
+        wx = local[9]
+        lo = mesh.get_local_rank("model") * wx.shape[1] \
+            if split and M > 1 else 0
+        return _ssm_step(*local, lo=lo)
+
+    return model_region(body, args, rowed + params, outs, args[8])
 
 
 def init_ssm_cache(batch: int, d_model: int, *, expand: int, state: int,

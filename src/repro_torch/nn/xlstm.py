@@ -20,7 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.sharding import (batch_local, heads_local,
-                                              merge_heads, split_heads)
+                                              is_dtensor, merge_heads,
+                                              model_region, split_heads)
 from repro_torch.nn.module import Linear, linear, normal_, param
 
 STATE_NEG = -1e30  # the stabiliser's start, as the reference's
@@ -125,32 +126,41 @@ def mlstm_decode(p: MLSTM, x: torch.Tensor, st: MLSTMState, n_heads: int,
                  active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, d), one token a row; ``st``: the layer's state (B, ...),
     updated in place on the ``active`` rows (ref :86).  Returns (B, d)."""
-    B, d = x.shape
-    H, P = n_heads, d // n_heads
+    H, P = n_heads, x.shape[-1] // n_heads
 
     def proj(w):
-        return linear(w, x, compute_dtype=compute_dtype).reshape(
-            B, H, P).float()
+        return split_heads(linear(w, x, compute_dtype=compute_dtype), H,
+                           P).float()
 
     q, k, v = proj(p.wq), proj(p.wk), proj(p.wv)
     xf = x.float()
     it = _f32(p.w_i, xf)                                   # (B, H)
-    logf = F.logsigmoid(_f32(p.w_f, xf))
-    m_new = torch.maximum(logf + st.m, it)
-    fp = torch.exp(logf + st.m - m_new)
+    ft = _f32(p.w_f, xf)
+    # on a DeviceMesh, a region of each rank's rows and heads
+    h, C, n, m_new = heads_local(_mlstm_cell, q, k, v, it, ft, st.C, st.n,
+                                 st.m, dim=1, outs=4)
+    o = torch.sigmoid(_f32(p.w_o, xf))
+    y = merge_heads(h) * o * p.norm_scale.float()
+    _commit(st, (C, n, m_new), active)
+    return linear(p.w_out, y.to(compute_dtype), compute_dtype=compute_dtype)
+
+
+def _mlstm_cell(q, k, v, it, ft, C, n, m):
+    """One mLSTM update per (row, head), f32: (h, C, n, m) from the
+    previous (C, n, m) and the step's q, k, v (B, H, P) and gate
+    pre-activations it, ft (B, H)."""
+    logf = F.logsigmoid(ft)
+    m_new = torch.maximum(logf + m, it)
+    fp = torch.exp(logf + m - m_new)
     ip = torch.exp(it - m_new)
-    C = fp[..., None, None] * st.C + ip[..., None, None] * (
+    C = fp[..., None, None] * C + ip[..., None, None] * (
         v[..., :, None] * k[..., None, :])                 # v k^T
-    n = fp[..., None] * st.n + ip[..., None] * k
-    qs = q / math.sqrt(P)
+    n = fp[..., None] * n + ip[..., None] * k
+    qs = q / math.sqrt(q.shape[-1])
     num = torch.einsum("bhvp,bhp->bhv", C, qs)
     den = torch.maximum(torch.abs(torch.einsum("bhp,bhp->bh", n, qs)),
                         torch.exp(-m_new))
-    h = num / den[..., None]
-    o = torch.sigmoid(_f32(p.w_o, xf))
-    y = h.reshape(B, d) * o * p.norm_scale.float()
-    _commit(st, (C, n, m_new), active)
-    return linear(p.w_out, y.to(compute_dtype), compute_dtype=compute_dtype)
+    return num / den[..., None], C, n, m_new
 
 
 def init_mlstm_state(batch: int, d_model: int, n_heads: int, *,
@@ -219,9 +229,31 @@ def slstm_step(p: SLSTM, x_t: torch.Tensor, st: SLSTMState, n_heads: int,
     h (B, d) f32, before ``norm_scale``."""
     xf = x_t.float()
     gates = torch.stack([_f32(getattr(p, f"w_{g}"), xf) for g in "zifo"])
-    c, n, h, m = _cell(gates, p.recurrent(), st.c, st.n, st.h, st.m)
+    if is_dtensor(st.c):
+        c, n, h, m = _cell_region(gates, p.recurrent(), st, n_heads)
+    else:
+        c, n, h, m = _cell(gates, p.recurrent(), st.c, st.n, st.h, st.m)
     _commit(st, (c, n, h, m), active)
     return h
+
+
+def _cell_region(gates, r, st, n_heads: int):
+    """``_cell`` on a DeviceMesh: batch rows over the data axes, each
+    rank's heads over ``model`` where they divide it (its slice of d in
+    the states and gates, its blocks of the recurrent weights), else
+    every head on every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels.ops import model_size
+    split = n_heads % model_size(st.c.device_mesh) == 0
+    S1, S2 = (Shard(1), Shard(2)) if split else (Replicate(), Replicate())
+    state = (True, S1)
+
+    def body(g, rl, c, n, h, m):
+        return _cell(g.transpose(0, 1), rl, c, n, h, m)
+
+    return model_region(body, (gates.transpose(0, 1), r, *st),
+                        ((True, S2), (False, S1)) + (state,) * 4,
+                        (state,) * 4, st.c)
 
 
 def slstm_scan(p: SLSTM, x: torch.Tensor, n_heads: int,

@@ -26,10 +26,32 @@ def placements_match_local_shard():
               [(("pod", "data"), "model"), ("model", ("pod", "data")),
                (None, ("data", "model")), ("pod",)])]
     n = 0
+    from repro_torch.configs import registry
+    from repro_torch.models import api as model_api
+    cfg = registry.get_smoke("zamba2-7b")
     for rank in range(8):
         dist.init_process_group("fake", store=FakeStore(), rank=rank,
                                 world_size=8)
         try:
+            # a decode cache placed from the whole one, and one allocated
+            # block by block: each rank's block is local_shard's
+            dm = init_device_mesh("cpu", (4, 2),
+                                  mesh_dim_names=("data", "model"))
+            gen = torch.Generator().manual_seed(0)
+            full = model_api.init_cache(cfg, 8, 16, "cpu")
+            for leaf in shd.tree_leaves_of(full):
+                leaf.normal_(generator=gen)
+            placed = shd.distribute_cache(full, dm, 8)
+            alloc = model_api.init_cache(cfg, 8, 16, "cpu", device_mesh=dm)
+            coords = shd.mesh_coords(dm)
+            for w, p, a in zip(*(shd.tree_leaves_of(t)
+                                 for t in (full, placed, alloc))):
+                spec = shd.spec_of(p.placements, p.dim(), dm)
+                assert torch.equal(p.to_local(),
+                                   shd.local_shard(w, spec, dm, coords))
+                assert a.placements == p.placements
+                assert a.to_local().shape == p.to_local().shape
+                n += 1
             for sizes, names, specs in cases:
                 dm = init_device_mesh("cpu", sizes, mesh_dim_names=names)
                 coords = shd.mesh_coords(dm)
@@ -134,7 +156,62 @@ def main():
         out["monitor"] = {"namespaces": c.counts()["namespaces"],
                           "collectives": c.counts()["collectives"],
                           "u_shape": list(r["u"].shape)}
+    out.update(decode_checks(dm))
     print(json.dumps(out))
+
+
+def decode_checks(dm):
+    """The decode kind of ``step_and_specs`` on the (4, 2) mesh for the
+    archs the reference's dry-run test compiles (SMOKE, B 8, a 64-token
+    cache), counted; and the monitor step on a placed model with an edge
+    cache over the data axes only (``init_cache(..., use_model=False)``),
+    its tokens split over data."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.decomposition import edge_arch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import api as model_api
+    shape = ShapeConfig("d", 64, 8, "decode")
+    out = {"decode": {}}
+    for arch in ("granite-8b", "deepseek-v3-671b", "zamba2-7b"):
+        cfg = registry.get_smoke(arch)
+        c = dryrun.count_step(cfg, shape, dm)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            _, args = steps.step_and_specs(cfg, shape, dm)
+        server = args[1]
+        out["decode"][arch] = {
+            "kernels": {k: v["calls"] for k, v in c["kernels"].items()},
+            "combine_flops": c["kernels"]["monitor_combine"]["flops"],
+            "collectives": c["collectives"],
+            "model_bytes": c["by_group"].get(
+                dm.get_group("model").group_name, 0),
+            "server_placements": sorted({
+                tuple(pl.dim if pl.is_shard() else None
+                      for pl in leaf.placements)
+                for leaf in shd.tree_leaves_of(server)}, key=str),
+            "edge_model_whole": all(
+                leaf.placements[1].is_replicate()
+                for leaf in shd.tree_leaves_of(args[2])),
+            "layers": cfg.n_layers, "heads": cfg.n_heads,
+            "head_dim": cfg.resolved_head_dim}
+    gcfg = registry.get_smoke("granite-8b")
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        model = steps.placed_shapes(gcfg, dm)
+        ecache = model_api.init_cache(edge_arch(gcfg), 8, 16, "cpu",
+                                      device_mesh=dm, use_model=False)
+        tok = DTensor.from_local(torch.zeros(2, dtype=torch.int32), dm,
+                                 shd.batch_placements(dm, (8,), 8),
+                                 run_check=False, shape=(8,), stride=(1,))
+        c = dryrun.CostCounter()
+        with c:
+            r = steps.make_monitor_step(gcfg)(model, ecache, tok, 3)
+        out["placed_monitor"] = {"namespaces": c.counts()["namespaces"],
+                                 "collectives": c.counts()["collectives"],
+                                 "u_shape": list(r["u"].shape)}
+    return out
 
 
 if __name__ == "__main__":

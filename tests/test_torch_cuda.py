@@ -1147,3 +1147,65 @@ def test_ep_dispatch_one_rank_nccl_is_moe_apply(cuda, arch):
     finally:
         dist.destroy_process_group()
     assert torch.equal(got, want) and torch.equal(aux, waux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_partial_kernel_vs_plain(cuda, dtype, splits):
+    """The partial entry on a slice holding global rows 512 .. 767, as
+    planned (None) and over 1, 2, 4 and 8 blocks of a cluster: rows whose
+    position leaves the slice empty (o = 0 and lse = -inf exactly), partly
+    and wholly valid, and a ring past its capacity; o and lse (both f32)
+    against the plain version."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_partial_cuda, decode_attention_partial_plain)
+    B, Hq, Hkv, D, Cl, base = 8, 32, 8, 128, 256, 512
+    gen = torch.Generator(cuda).manual_seed(7)
+    q = _rand((B, Hq, D), dtype, gen, cuda)
+    k = _rand((B, Cl, Hkv, D), dtype, gen, cuda)
+    v = _rand((B, Cl, Hkv, D), dtype, gen, cuda)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for pos in (torch.tensor([0, 100, 511, 512, 600, 767, 768, 5000],
+                             device=cuda),
+                torch.full((B,), 3 * 1024 + 5, device=cuda)):
+        o, lse = decode_attention_partial_cuda(q, k, v, pos, base, splits)
+        want_o, want_lse = decode_attention_partial_plain(q, k, v, pos, base)
+        torch.cuda.synchronize()
+        assert o.dtype == lse.dtype == torch.float32
+        empty = pos < base
+        assert bool((lse[empty] == -float("inf")).all())
+        assert bool((o[empty] == 0).all())
+        torch.testing.assert_close(o, want_o, atol=tol, rtol=tol)
+        torch.testing.assert_close(lse[~empty], want_lse[~empty], atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partials_combine_to_the_full_kernel(cuda, dtype, m):
+    """A C = 4096 cache cut into M time slices, each slice's partial entry
+    joined by ``combine_partials`` (f32, then q's dtype), against the full
+    kernel on the whole cache, at positions that leave slices empty and
+    one past the capacity."""
+    from repro_torch.kernels.decode_attention import (
+        combine_partials, decode_attention_partial_cuda)
+    B, Hq, Hkv, D, C = 8, 32, 8, 128, 4096
+    gen = torch.Generator(cuda).manual_seed(m)
+    q = _rand((B, Hq, D), dtype, gen, cuda)
+    k = _rand((B, C, Hkv, D), dtype, gen, cuda)
+    v = _rand((B, C, Hkv, D), dtype, gen, cuda)
+    pos = torch.tensor([0, 5, 300, 1023, 2047, 2500, 4095, 9000],
+                       device=cuda)
+    Cl = C // m
+    parts = [decode_attention_partial_cuda(
+        q, k[:, r * Cl:(r + 1) * Cl].contiguous(),
+        v[:, r * Cl:(r + 1) * Cl].contiguous(), pos, r * Cl)
+        for r in range(m)]
+    got = combine_partials([o for o, _ in parts],
+                           [lse for _, lse in parts]).to(dtype)
+    want = decode_attention_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)

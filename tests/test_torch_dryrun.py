@@ -148,6 +148,27 @@ def test_report_tables_equal_the_reference(tmp_path):
         assert getattr(treport, fn)(got) == getattr(jreport, fn)(want), fn
 
 
+def test_shape_table_fills_the_four_shape_columns():
+    """The port's per-arch table: a column for each of the reference's
+    four shapes, each counted pair's three terms and bottleneck, a dash
+    for a pair not counted, FAIL for a failed one."""
+    recs = []
+    for j, shape in enumerate(treport.SHAPE_ORDER):
+        r = trf.analyze_costs({"flops": 1e14, "bytes": 1e12 * (j + 1),
+                               "coll_all-reduce": 1e9}, arch=ARCHS[0],
+                              shape=shape, mesh_desc="16x16", chips=256,
+                              model_flops=1e15).as_dict()
+        recs.append(dict(r, status="ok"))
+    recs.append({"arch": ARCHS[1], "shape": "long_500k", "status": "FAIL"})
+    rows = treport.shape_table(recs).splitlines()
+    assert rows[0] == "| arch | " + " | ".join(treport.SHAPE_ORDER) + " |"
+    cells = {r.split("|")[1].strip(): [c.strip() for c in r.split("|")[2:-1]]
+             for r in rows[2:]}
+    assert len(cells[ARCHS[0]]) == 4
+    assert all("**memory**" in c for c in cells[ARCHS[0]])
+    assert cells[ARCHS[1]] == ["—", "—", "—", "FAIL"]
+
+
 def test_roofline_terms_at_the_h100_peaks():
     """The three terms over the H100 SXM's peaks, per device."""
     assert (trf.PEAK_FLOPS, trf.HBM_BW, trf.LINK_BW) == (989e12, 3.35e12,
@@ -167,8 +188,11 @@ def _checks():
 def test_placements_cut_as_local_shard():
     """Every rank's DTensor block under ``placements(spec)`` is
     ``local_shard``'s, on (data 2, model 4) and (pod 2, data 2, model 2)
-    meshes, for split, doubly split and replicated specs."""
-    assert _checks()["blocks"] == 8 * (6 + 4)
+    meshes, for split, doubly split and replicated specs; so are the six
+    leaves of zamba2's decode cache placed by ``distribute_cache`` on
+    (data 4, model 2), and ``init_cache(..., device_mesh=)`` allocates
+    blocks of the same placements and shapes."""
+    assert _checks()["blocks"] == 8 * (6 + 4 + 6)
 
 
 def test_flop_counter_sees_local_shards():
@@ -208,6 +232,51 @@ def test_collectives_on_the_model_axis_and_none_in_the_monitor_step():
     assert not set(c["monitor"]["namespaces"]) & set(C10D_NAMESPACES)
     assert sum(c["monitor"]["collectives"].values()) == 0
     assert c["monitor"]["u_shape"] == [2]
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "deepseek-v3-671b",
+                                  "zamba2-7b"])
+def test_decode_kind_runs_on_a_small_mesh(arch):
+    """``step_and_specs``'s decode kind on (data 4, model 2) at SMOKE (B
+    8, a 64-token cache), counted: the server cache split on its time
+    axis over ``model`` (``decode_cache_shard = "time"``), the edge cache
+    whole there; flash-decode's collectives over the model group; the
+    partial entry once a GQA layer (MLA runs tensor ops), the whole
+    kernel once an edge layer; the combine on each rank's own rows."""
+    d = _checks()["decode"][arch]
+    assert d["edge_model_whole"]
+    # (data, model) dims of each leaf: the model axis on the axis after
+    # the batch (time; an SSM state's heads) or whole (a conv tail)
+    pls = d["server_placements"]
+    assert all(m in (b + 1, None) for b, m in pls), pls
+    assert any(m is not None for _, m in pls), pls
+    assert d["model_bytes"] > 0
+    assert d["collectives"]["all-gather"] > 0
+    assert d["kernels"]["decode_attention"] == 1   # the edge's one layer
+    # the combine on each rank's 2 of the 8 rows: 8 flops a row
+    assert d["kernels"]["monitor_combine"] == 1 and \
+        d["combine_flops"] == 8.0 * 2
+    if arch == "granite-8b":
+        assert d["kernels"]["decode_attention_partial"] == d["layers"]
+        # each layer's combine: lse (4 B a row and q head) and [w o, w]
+        # (D + 1 f32 values), over each rank's 2 rows
+        combine = d["layers"] * 2 * d["heads"] * 4 * (d["head_dim"] + 2)
+        assert d["collectives"]["all-reduce"] >= combine
+    elif arch == "zamba2-7b":   # the shared block, once a super-block
+        assert d["kernels"]["decode_attention_partial"] == 2
+    else:
+        assert "decode_attention_partial" not in d["kernels"]
+
+
+def test_placed_monitor_step_records_no_collective():
+    """The monitor step on a placed model (DTensor parameters: the edge
+    tower whole on every rank) and an edge cache over the data axes only
+    runs no ``c10d`` op on any axis."""
+    from repro_torch.serving.mesh import C10D_NAMESPACES
+    m = _checks()["placed_monitor"]
+    assert not set(m["namespaces"]) & set(C10D_NAMESPACES)
+    assert sum(m["collectives"].values()) == 0
+    assert m["u_shape"] == [8]
 
 
 def test_full_pair_runs_to_a_roofline_row():

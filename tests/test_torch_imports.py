@@ -36,6 +36,8 @@ import repro_torch.distributed, repro_torch.distributed.sharding
 import repro_torch.serving.mesh, repro_torch.launch.mesh
 import repro_torch.launch.dryrun, repro_torch.launch.layer_costs
 import repro_torch.launch.roofline, repro_torch.launch.report
+import repro_torch.kernels.decode_attention, repro_torch.nn.attention
+import repro_torch.nn.ssm, repro_torch.nn.xlstm, repro_torch.models.api
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)
