@@ -211,11 +211,34 @@ Phases, each printing its own lines:
               logits, fhat, server cache within the f32 end-to-end
               tolerance); its partial launches are the kernels line's.
 
+16. analysis -- right after phase 4's granite-8b cell (before 13, which
+              frees its model), on that cell's model: the host cost of
+              the kernels' registered ops (monitor_combine and
+              decode_attention through the op against
+              the direct wrapper, us a call, and what that adds to a sync
+              step at the serve cell's launches); granite-8b's catch-up
+              (B = 8, R = 2 rounds, 36 layers) exported with torch.export
+              from CUDA tensors, holding one repro_torch.decode_attention
+              node per layer per round, one repro_torch.monitor_combine
+              and no aten.empty*, its program run on the card from a copy
+              of the same cache bitwise the eager catch-up (v, fhat, the
+              written cache) with the same launches; the edge paths
+              exported (decode_at run bitwise eager); the sign
+              certificates on those graphs (the exported catch-up, and
+              both sigma kinds at full width on CERT_LAYERS layers PROVED,
+              the flipped sign REFUTED at its mul); the graph rules on the
+              edge paths and the catch-up; the mutation self-test (every
+              rule fires); a churn episode under the armed signature
+              guard; zamba2-7b's forward at 2 of its 81 layers exported,
+              one ssd_scan node per Mamba2 layer and one flash node per
+              attention layer, bitwise eager, its certificate PROVED.
+              The exported programs' launches are in the kernels line.
+
 --profile adds torch.profiler breakdowns of one sync and one scan run, of
 one train step per model, of a train_paper step and of a generate step
 per model, and the CUDA stream ids of the serve kernels in a short async
 stream run per model (the phases run in the order 1-3, 4's granite-8b
-cell, 13, 4's zamba2-7b cell, 8, 9, 10, 11's and 12's serve cells, 5,
+cell, 16, 13, 4's zamba2-7b cell, 8, 9, 10, 11's and 12's serve cells, 5,
 14, 15, 11's and 12's train cells, 6, 7).
 Then
 one JSON line of the kernels, the
@@ -783,8 +806,8 @@ def phase_ssd(torch, dev, seed: int, shape):
     """ssd_scan against its plain version (y and h_final, atol 5e-5 and
     rtol 5e-4) at the hybrid train shape ``shape`` (B, S, H, P, N, chunk),
     the reference's test grid, S = 1 and a ragged S, and in every case
-    against the plain form in f64 at the same tolerance; the SSDScan
-    backward against autograd through the plain version in f32 and in f64
+    against the plain form in f64 at the same tolerance; the ssd_scan_fwd
+    op's backward against autograd through the plain version in f32 and in f64
     at the full shape; then the device kernels a call (profiler), the time
     of every tile the plan could pick, and the kernel's, the plain
     version's and the backward's times, with the bound at the rate of the
@@ -916,7 +939,7 @@ def phase_ssd(torch, dev, seed: int, shape):
         xdt, la, Bm, Cm, chunk=chunk), 3)
     leaves = [t.detach().requires_grad_(True) for t in (xdt, la, Bm, Cm)]
 
-    def backward(i):  # what SSDScan.backward runs
+    def backward(i):  # what the ssd_scan_fwd op's backward runs
         out = ssd_scan_plain(*leaves, chunk=chunk)
         torch.autograd.grad(out, leaves, (dy, dh))
 
@@ -1173,7 +1196,7 @@ def phase_serve(torch, dev, args, cfg, twice: bool = False,
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()  # count the main path's launches only
-    runs, engines = {}, {}
+    runs, engines, stats = {}, {}, {}
     for mode in ("sync", "scan"):
         before = kernels.launch_counts()
         t0 = time.perf_counter()
@@ -1183,6 +1206,7 @@ def phase_serve(torch, dev, args, cfg, twice: bool = False,
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launched = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        stats[mode] = (dt / S * 1e3, launched)
         print(f"[serve] {cfg.name} {mode}: {B * S / dt:.1f} tokens/s, "
               f"{dt / S * 1e3:.2f} ms/step over {S} steps x {B} streams; "
               f"trigger rate {r['comms']['trigger_rate']:.3f}, reduction "
@@ -1237,7 +1261,7 @@ def phase_serve(torch, dev, args, cfg, twice: bool = False,
         profile(torch, session, conf, toks[:, :PROFILE_STEPS], cfg.name)
     if keep:
         return counts, dict(model=model, conf=conf, toks=toks, runs=runs,
-                            engine=engines["sync"])
+                            engine=engines["sync"], stats=stats)
     del model, session, engines
     return counts
 
@@ -3641,7 +3665,10 @@ def phase_last_families(torch, dev, args) -> dict:
     return counts
 
 
-SLSTM_PROFILE_SEQ = 256  # positions the profiler counts launches over
+# positions the profiler counts launches over: 64 since the analysis phase
+# took the script past 1100 s (256 before: ~140 s of profiler sessions,
+# the same kernels at every position)
+SLSTM_PROFILE_SEQ = 64
 
 
 def slstm_launches(torch, dev, cfg, seq: int) -> None:
@@ -4519,6 +4546,259 @@ def phase_mesh_serve(torch, dev, args) -> tuple:
     return record, counts
 
 
+# ---------------------------------------------------------------- phase 16
+# the catch-up the analysis phase exports: the serve cell's B = 8 streams,
+# R = 2 rounds; the sigma variants and the flipped sign are certified at
+# full width on CERT_LAYERS of granite's 36 layers; zamba2-7b's forward
+# is exported at 2 of its 81 layers (two Mamba2 tail layers: the shared
+# block follows every 6th) over ZAMBA_EXPORT_SEQ tokens
+ANALYSIS_ROUNDS, CERT_LAYERS = 2, 2
+ZAMBA_EXPORT_LAYERS, ZAMBA_EXPORT_SEQ = 2, 256
+# calls a host-cost sample times, queued behind a sleep on the card
+HOST_CALLS = 400
+
+
+def _leaves_equal(torch, a, b) -> bool:
+    from torch.utils._pytree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def _targets(ep) -> list:
+    return [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+
+
+def op_host_cost(torch, dev, stats) -> None:
+    """Host microseconds a call of monitor_combine and decode_attention
+    (granite's server shape) takes through its registered op against the
+    direct kernel wrapper, under inference mode as the serve paths run:
+    HOST_CALLS calls queued behind a sleep kernel (the card does not pace
+    the host), three samples each, alternating, the median.  With the
+    serve cell's sync launches per step (``stats``), what the ops add to
+    a granite sync step."""
+    from repro_torch.configs import granite_8b
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.monitor_combine import monitor_combine_cuda
+    cfg = granite_8b.FULL
+    g = torch.Generator(dev).manual_seed(0)
+    u, v = (torch.randn(BATCH, device=dev, generator=g) for _ in range(2))
+    D = cfg.resolved_head_dim
+    q = torch.randn((BATCH, cfg.n_heads, D), device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    kc, vc = (torch.randn((BATCH, MAX_LEN, cfg.n_kv_heads, D), device=dev,
+                          generator=g, dtype=torch.bfloat16)
+              for _ in range(2))
+    pos = torch.full((BATCH,), MAX_LEN - 1, dtype=torch.int32, device=dev)
+    kw = dict(s=cfg.monitor.s, threshold=0.0, margin=0.25)
+    cases = {
+        "monitor_combine": (lambda: ops.monitor_combine(u, v, u, **kw),
+                            lambda: monitor_combine_cuda(u, v, u, **kw)),
+        "decode_attention": (lambda: ops.decode_attention(q, kc, vc, pos),
+                             lambda: decode_attention_cuda(q, kc, vc, pos))}
+    cost = {}
+    with torch.inference_mode():
+        for name, (op, direct) in cases.items():
+            per = {"op": [], "direct": []}
+            for rep in range(6):
+                label, fn = (("op", op), ("direct", direct))[rep % 2]
+                fn()
+                torch.cuda.synchronize()
+                torch.cuda._sleep(200_000_000)   # ~100 ms: calls only queue
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    fn()
+                per[label].append((time.perf_counter() - t0) * 1e6
+                                  / HOST_CALLS)
+                torch.cuda.synchronize()
+            cost[name] = {k: float(np.median(x)) for k, x in per.items()}
+            c = cost[name]
+            print(f"[analysis] host cost of {name}: through the op "
+                  f"{c['op']:.2f} us/call, the direct wrapper "
+                  f"{c['direct']:.2f}, the op adds {c['op'] - c['direct']:.2f}"
+                  f" (samples op {[round(x, 2) for x in per['op']]}, direct "
+                  f"{[round(x, 2) for x in per['direct']]})")
+    ms, launched = stats["sync"]
+    extra = sum((cost[n]["op"] - cost[n]["direct"]) * launched[n]
+                for n in cost) / STEPS / 1e3
+    print(f"[analysis] the ops add {extra:.4f} ms to a granite-8b sync step "
+          f"of {ms:.2f} ms ({100 * extra / ms:.3f}%), at the serve cell's "
+          f"{launched} launches over {STEPS} steps")
+
+
+def phase_analysis(torch, dev, args, kept) -> dict:
+    """The static verifier on the card's graphs (see the module docstring,
+    phase 16), on the serve cell's granite-8b FULL model (``kept``);
+    returns the kernels' launches in the exported programs' runs."""
+    from repro_torch import kernels
+    from repro_torch.analysis import graph as agraph
+    from repro_torch.analysis import rules, signs
+    from repro_torch.configs import granite_8b, zamba2_7b
+    from repro_torch.core.decomposition import init_collab_lm
+    from repro_torch.models import hybrid
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    from torch.utils._pytree import tree_leaves
+    op_host_cost(torch, dev, kept["stats"])
+    cfg = granite_8b.FULL
+    model = kept["model"]
+    counts = dict.fromkeys(SERVE_KERNELS + TRAIN_KERNELS, 0)
+    g = torch.Generator(dev).manual_seed(args.seed)
+    eng = CollaborativeEngine(model, cfg, BATCH, MAX_LEN, device=dev)
+    for leaf in tree_leaves(eng.server.cache):   # a cache some steps in
+        leaf.copy_(torch.randn(leaf.shape, device=dev, generator=g))
+    for leaf in tree_leaves(eng.edge.cache):
+        leaf.copy_(torch.randn(leaf.shape, device=dev, generator=g))
+    u = torch.randn(BATCH, device=dev, generator=g)
+
+    # 1-3: the catch-up exported, its nodes, its run against eager
+    t0 = time.perf_counter()
+    inputs = signs.catchup_inputs(eng, ANALYSIS_ROUNDS, u=u)
+    ep = signs.export_catchup(eng, ANALYSIS_ROUNDS, args=inputs)
+    t_export = time.perf_counter() - t0
+    tg = _targets(ep)
+    n_dec = tg.count("repro_torch.decode_attention.default")
+    n_comb = tg.count("repro_torch.monitor_combine.default")
+    empties = [t for t in tg if "empty" in t]
+    print(f"[analysis] granite-8b catch-up exported (B {BATCH}, R "
+          f"{ANALYSIS_ROUNDS}, {cfg.n_layers} layers) in {t_export:.1f} s: "
+          f"{len(tg)} nodes, {n_dec} repro_torch.decode_attention, {n_comb} "
+          f"repro_torch.monitor_combine, {len(empties)} aten.empty*")
+    check(n_dec == ANALYSIS_ROUNDS * cfg.n_layers and n_comb == 1,
+          "catch-up graph: a decode node per layer per round, one combine")
+    check(not empties, f"catch-up graph has no empty: {empties}")
+    cache_x, cache_e = (copy.deepcopy(inputs[0]) for _ in range(2))
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        v_x, f_x = ep.module()(cache_x, *inputs[1:])
+        torch.cuda.synchronize()
+        n_x = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        v_e, f_e = signs.CatchupGraph(eng)(cache_e, *inputs[1:])
+        torch.cuda.synchronize()
+        n_e = kernels.launch_counts()
+    same = (torch.equal(v_x, v_e), torch.equal(f_x, f_e),
+            _leaves_equal(torch, cache_x, cache_e))
+    moved = not _leaves_equal(torch, cache_x, inputs[0])
+    print(f"[analysis] exported catch-up against eager on the card: v, fhat,"
+          f" server cache bitwise {same} (cache written: {moved}); launches "
+          f"exported {n_x}, eager {n_e}")
+    check(all(same) and moved, "exported catch-up bitwise eager")
+    check(n_x == n_e and n_x["decode_attention"] == n_dec
+          and n_x["monitor_combine"] == 1,
+          "exported catch-up launches the kernels as eager does")
+    for name in counts:
+        counts[name] += n_x[name]
+
+    # the edge paths: exported, decode_at run against eager
+    t0 = time.perf_counter()
+    edge_graphs = agraph.monitor_path_graphs(eng, include_catchup=False)
+    t_edge = time.perf_counter() - t0
+    n_edge = _targets(edge_graphs["decode_at"]).count(
+        "repro_torch.decode_attention.default")
+    check(n_edge == eng.edge.cfg.n_layers,
+          "edge decode graph: a decode node per edge layer")
+    tok = torch.randint(0, cfg.vocab_size, (BATCH,), device=dev, generator=g)
+    pos = torch.randint(0, MAX_LEN, (BATCH,), device=dev, generator=g,
+                        dtype=torch.int32)
+    act = torch.arange(BATCH, device=dev) % 3 != 1
+    ec_x, ec_e = (copy.deepcopy(eng.edge.cache) for _ in range(2))
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        h_x = edge_graphs["decode_at"].module()(ec_x, tok, pos, act)
+        torch.cuda.synchronize()
+        e_x = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        h_e = agraph._DecodeAt(eng.edge)(ec_e, tok, pos, act)
+        torch.cuda.synchronize()
+        e_e = kernels.launch_counts()
+    same = torch.equal(h_x, h_e) and _leaves_equal(torch, ec_x, ec_e)
+    print(f"[analysis] edge paths exported in {t_edge:.1f} s "
+          f"({sorted(edge_graphs)}); decode_at: {n_edge} decode nodes, run "
+          f"against eager bitwise {same}, launches {e_x} / {e_e}")
+    check(same and e_x == e_e, "exported edge decode bitwise eager")
+    for name in counts:
+        counts[name] += e_x[name]
+
+    # 4: certificates on the card's graphs
+    t0 = time.perf_counter()
+    certs = [signs.certify_catchup(ep, "granite-8b", cfg.monitor.sigma)]
+    small = cfg.replace(n_layers=CERT_LAYERS)
+    smodel = init_collab_lm(small, torch.Generator(dev).manual_seed(
+        args.seed), dev)
+    for kind in signs.SIGMA_KINDS:
+        certs.append(signs.verify_catchup(
+            small, f"granite-8b/{CERT_LAYERS} layers", sigma=kind,
+            batch=BATCH, max_len=MAX_LEN, device=dev, model=smodel))
+    flipped = signs.verify_catchup(
+        small, f"granite-8b/{CERT_LAYERS} layers", s=-cfg.monitor.s,
+        batch=BATCH, max_len=MAX_LEN, device=dev, model=smodel)
+    for c in certs + [flipped]:
+        print(f"[analysis] {c}")
+    print("[analysis] flipped sign's chain: " + " | ".join(
+        ln.strip() for ln in flipped.detail.splitlines()[1:]))
+    check(all(c.ok for c in certs), "sign certificates PROVED")
+    check(not flipped.ok and "aten.mul" in flipped.detail,
+          "the flipped sign REFUTED at a mul")
+    del smodel
+    t_cert = time.perf_counter() - t0
+
+    # 5: the graph rules over the edge paths and the catch-up
+    t0 = time.perf_counter()
+    graphs = dict(edge_graphs, catchup=ep)
+    for name, gr in graphs.items():
+        hits = (agraph.collective_nodes(gr) + agraph.host_transfer_nodes(gr)
+                + agraph.dynamic_shape_nodes(gr))
+        print(f"[analysis] graph rules on {name}: "
+              f"{len(list(gr.graph.nodes))} nodes, "
+              f"{[h.brief() for h in hits] or 'pass'}")
+        check(not hits, f"graph rules pass on {name}")
+
+    # 6-7: the mutation self-test and a churn episode under the guard
+    for r in rules.mutation_selftest() + \
+            rules.run_recompile_rule(device=dev):
+        print(f"[analysis] {r.rule} ({r.target}): "
+              f"{'ok' if r.ok else 'FAILED ' + r.detail}")
+        check(r.ok, f"{r.rule} {r.target}")
+    t_rules = time.perf_counter() - t0
+
+    # 8: zamba2-7b's forward at 2 layers: ssd and flash nodes, bitwise eager
+    t0 = time.perf_counter()
+    zcfg = zamba2_7b.FULL.replace(n_layers=ZAMBA_EXPORT_LAYERS)
+    zmodel = init_collab_lm(zcfg, torch.Generator(dev).manual_seed(
+        args.seed), dev)
+    batch = signs.forward_batch(zcfg, 2, ZAMBA_EXPORT_SEQ, dev)
+    zep = signs.export_forward(zmodel, zcfg, batch)
+    n_super, k, tail = hybrid._layout(zcfg)
+    want = {"ssd_scan_fwd": n_super * k + tail,
+            "flash_attention_fwd": n_super + zcfg.monitor.n_layers}
+    got = {n: _targets(zep).count(f"repro_torch.{n}.default") for n in want}
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        out_x = zep.module()(batch)
+        torch.cuda.synchronize()
+        z_x = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        out_e = signs._Forward(zmodel, zcfg)(batch)
+        torch.cuda.synchronize()
+        z_e = kernels.launch_counts()
+    same = all(torch.equal(a, b) for a, b in zip(out_x, out_e))
+    zcert = signs.certify_forward(zep, "zamba2-7b", zcfg.monitor.sigma)
+    print(f"[analysis] zamba2-7b forward ({ZAMBA_EXPORT_LAYERS} layers, "
+          f"full width, B 2 x S {ZAMBA_EXPORT_SEQ}) exported: nodes {got} "
+          f"(want {want}); corr, fhat, u bitwise eager {same}; launches "
+          f"{z_x} / {z_e}; {zcert}")
+    check(got == want, "zamba2 forward graph: a kernel node per layer")
+    check(same and z_x == z_e, "exported zamba2 forward bitwise eager")
+    check(zcert.ok, "zamba2 forward certificate PROVED")
+    for name in counts:
+        counts[name] += z_x[name]
+    del zmodel
+    print(f"[analysis] catch-up export {t_export:.1f} s, certificates "
+          f"{t_cert:.1f} s, rules and self-test {t_rules:.1f} s, zamba2 "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4595,6 +4875,13 @@ def main(argv=None) -> int:
     for name in SERVE_KERNELS:
         counts[name] += run[name]
     took("serve granite-8b")
+    # phase 16 on the serve cell's model (phase 13 frees it)
+    run = phase_analysis(torch, dev, args, kept)
+    for name, n in run.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    took("analysis")
     # phase 13 on the serve cell's model, operating point and runs
     run = phase_mesh(torch, dev, args, kept)
     for name in SERVE_KERNELS:

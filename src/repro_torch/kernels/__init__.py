@@ -1,5 +1,6 @@
 """The port's kernels: each has a plain PyTorch version (CPU tensors) and a
-hand-written Hopper kernel (CUDA tensors); ``ops`` picks by device."""
+hand-written Hopper kernel (CUDA tensors), registered as one
+``torch.library`` op whose dispatcher picks by device (``ops``)."""
 from repro_torch.kernels import ops  # noqa: F401
 from repro_torch.kernels.decode_attention import KERNEL as DECODE_ATTENTION
 from repro_torch.kernels.decode_attention import PARTIAL as DECODE_PARTIAL

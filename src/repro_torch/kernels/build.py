@@ -29,6 +29,16 @@ SOURCES = ("decode_attention.cu", "monitor_combine.cu", "flash_attention.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# libraries this process has compiled (``analysis/recompile.py``'s global
+# signal)
+_builds = 0
+
+
+def builds() -> int:
+    """How many kernel libraries ``build_all`` has compiled in this
+    process."""
+    return _builds
+
 
 def nvcc_path() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
@@ -54,6 +64,7 @@ def build_all(sources: Iterable[str] = SOURCES) -> Dict[str, dict]:
     processes at once.  Returns ``{source: {"seconds", "log", "cached"}}``
     (``log``: nvcc's output, the ``-Xptxas -v`` register and shared
     memory report).  Raises if any build fails."""
+    global _builds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
@@ -79,6 +90,7 @@ def build_all(sources: Iterable[str] = SOURCES) -> Dict[str, dict]:
             failed.append(f"{src} (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+        _builds += 1
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return out

@@ -64,7 +64,8 @@ def monitor_combine_blocks(u, v, f, blocks: int, *, s: float,
                            threshold: float = 0.0, margin: float = 0.25):
     """``monitor_combine_cuda`` on ``blocks`` blocks (1 to MAX_BLOCKS), for
     tests and the sweep that sets ONE_BLOCK_MAX.  fhat, mask and counts
-    are views of one buffer."""
+    are three tensors (the ``monitor_combine`` op's outputs alias
+    nothing)."""
     if u.device.type != "cuda":
         raise ValueError(f"monitor_combine kernel needs CUDA tensors, got "
                          f"{u.device}")
@@ -84,8 +85,9 @@ def monitor_combine_blocks(u, v, f, blocks: int, *, s: float,
         raise ValueError(f"kernel takes 0 < N < 2**31, got {n}")
     if not 1 <= blocks <= MAX_BLOCKS:
         raise ValueError(f"blocks must be in 1..{MAX_BLOCKS}, got {blocks}")
-    out = torch.empty(2 * n + 2, dtype=torch.float32, device=u.device)
-    fhat, mask, counts = out[:n], out[n:2 * n], out[2 * n:]
+    fhat = torch.empty(n, dtype=torch.float32, device=u.device)
+    mask = torch.empty(n, dtype=torch.float32, device=u.device)
+    counts = torch.empty(2, dtype=torch.float32, device=u.device)
     scratch = (torch.zeros(3, dtype=torch.int32, device=u.device)
                if blocks > 1 else None)
     KERNEL(u.data_ptr(), v.data_ptr(), f.data_ptr(), fhat.data_ptr(),

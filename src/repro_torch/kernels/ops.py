@@ -1,32 +1,43 @@
-"""One call site per kernel, chosen by where the tensors lie.
+"""One call site per kernel: each kernel is a ``torch.library`` op in the
+``repro_torch`` namespace, and torch's dispatcher picks its
+implementation by where the tensors lie.
 
-A CPU tensor goes to the kernel's plain PyTorch version.  A CUDA tensor
-goes to the hand-written kernel, which raises on anything it does not
-take: there is no global switch and no fallback.
+Each op has four implementations:
 
-Two more kinds of operand, each found by one explicit check:
-
-- **Shape-only** (a ``FakeTensor`` or a meta tensor: the dry run,
-  ``launch/dryrun.py``).  The call goes to the kernel's shape function:
+- **CPU**: the kernel's plain PyTorch version.
+- **CUDA**: the wrapper of the hand-written kernel, which raises on
+  anything it does not take: there is no global switch and no fallback.
+  The wrapper counts its launches.
+- **fake** (a ``FakeTensor`` or a meta tensor: the dry run,
+  ``launch/dryrun.py``, and graph capture): the kernel's shape function,
   outputs of the kernel's shapes and dtypes, and the kernel's FLOPs and
   bytes (the counts behind PERF.md's bounds) recorded into every active
   ``shape_counters`` entry.  Nothing launches, and no plain version runs.
-  A fake CUDA tensor reports ``is_cuda``, so the check comes first.
-- **DTensor** (a step on a ``DeviceMesh``, ``distributed/sharding.py``).
-  ``flash_attention``, ``ssd_scan`` and ``decode_attention`` run in a
-  ``local_map`` region that states their operands' placements: batch rows
-  over the data axes, heads over ``model`` where the heads divide it, or,
-  for a decode cache split on its time axis, each rank's slice of the
-  cache (flash-decode: the partial entry and ``combine_partials``).
-  Inside, the kernel (or its plain version, or its shape function) sees
-  this rank's local tensors.
+- **autograd** (``flash_attention_fwd`` and ``ssd_scan_fwd``): the
+  backward in tensor ops that the reference's XLA gradient computes.
+
+A captured graph (``torch.export``) therefore holds each kernel call as
+one node, ``repro_torch.<op>``, as a jaxpr holds one ``pallas_call``,
+and the exported program runs the kernel (or the plain version) on its
+own inputs.  Non-tensor arguments are op arguments; a scalar decode
+position becomes a (B,) tensor (``pos_vector``) before the op.
+
+One more kind of operand, found by one explicit check: a **DTensor** (a
+step on a ``DeviceMesh``, ``distributed/sharding.py``).
+``flash_attention``, ``ssd_scan``, ``decode_attention`` and
+``monitor_combine`` run in a ``local_map`` region that states their
+operands' placements: batch rows over the data axes, heads over
+``model`` where the heads divide it, or, for a decode cache split on its
+time axis, each rank's slice of the cache (flash-decode: the partial
+entry and ``combine_partials``).  Inside, the op sees this rank's local
+tensors.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensor
+from torch import Tensor
 from torch.profiler import record_function
 
 from repro_torch.distributed.sharding import is_dtensor, row_placements
@@ -46,10 +57,7 @@ from repro_torch.kernels.ssm_scan import (ssd_flops, ssd_scan_cuda,
 # one for the span of a step).
 shape_counters: List[Dict[str, Dict[str, float]]] = []
 
-
-def shape_only(t) -> bool:
-    """A fake or meta operand: it has a shape and no storage."""
-    return isinstance(t, FakeTensor) or t.device.type == "meta"
+NAMESPACE = "repro_torch"
 
 
 def _record(name: str, flops: float, n_bytes: float) -> None:
@@ -70,6 +78,11 @@ def attention_pairs(S: int, T: int, window: int) -> int:
     full = S * (S + 1) // 2 if S <= T else T * (T + 1) // 2 + (S - T) * T
     m = max(0, S - window) if window else 0
     return full - m * (m + 1) // 2
+
+
+# ---------------------------------------------------------------------------
+# Shape functions (the ops' fake implementations)
+# ---------------------------------------------------------------------------
 
 
 def decode_attention_shape(q, k_cache, v_cache, pos):
@@ -97,14 +110,16 @@ def decode_attention_partial_shape(q, k_slice, v_slice, pos, base):
     return o, lse
 
 
-def monitor_combine_shape(u, v, f):
+def monitor_combine_shape(u, v, f, s, threshold, margin):
     n = u.shape[0]
-    out = torch.empty(2 * n + 2, dtype=torch.float32, device=u.device)
+    fhat = torch.empty(n, dtype=torch.float32, device=u.device)
+    mask = torch.empty(n, dtype=torch.float32, device=u.device)
+    counts = torch.empty(2, dtype=torch.float32, device=u.device)
     _record("monitor_combine", 8.0 * n, 3 * 4 * n + 2 * 4 * n + 8)
-    return out[:n], out[n:2 * n], out[2 * n:]
+    return fhat, mask, counts
 
 
-def flash_attention_shape(q, k, v, *, window: int = 0):
+def flash_attention_shape(q, k, v, window):
     """flash_attention's (o, lse) and counts."""
     B, S, Hq, Dqk = q.shape
     T, Dv = k.shape[1], v.shape[3]
@@ -116,7 +131,7 @@ def flash_attention_shape(q, k, v, *, window: int = 0):
     return o, lse
 
 
-def ssd_scan_shape(xdt, la, Bm, Cm, *, chunk: int = 128):
+def ssd_scan_shape(xdt, la, Bm, Cm, chunk):
     """ssd_scan's (y, h_final) and counts."""
     B, S, H, P = xdt.shape
     N = Bm.shape[-1]
@@ -127,27 +142,150 @@ def ssd_scan_shape(xdt, la, Bm, Cm, *, chunk: int = 128):
     return y, h
 
 
+# ---------------------------------------------------------------------------
+# The ops: CPU = plain version, CUDA = the kernel's wrapper, fake = shape
+# ---------------------------------------------------------------------------
+
+
+def _op(name: str, cpu, cuda, fake):
+    """Register ``repro_torch::<name>`` (schema from ``cpu``'s
+    annotations) with its three implementations; returns the op."""
+    op = torch.library.custom_op(f"{NAMESPACE}::{name}", cpu,
+                                 mutates_args=(), device_types="cpu")
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op
+
+
+def _dense(*ts):
+    """The plain version's outputs laid out as the kernel's (contiguous,
+    the strides the shape function states); the values are unchanged."""
+    return tuple(t.contiguous() for t in ts)
+
+
+def _decode_cpu(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                pos: Tensor) -> Tensor:
+    return decode_attention_plain(q, k_cache, v_cache, pos).contiguous()
+
+
+def _partial_cpu(q: Tensor, k_slice: Tensor, v_slice: Tensor, pos: Tensor,
+                 base: int) -> Tuple[Tensor, Tensor]:
+    return _dense(*decode_attention_partial_plain(q, k_slice, v_slice, pos,
+                                                  base))
+
+
+def _combine_cpu(u: Tensor, v: Tensor, f: Tensor, s: float, threshold: float,
+                 margin: float) -> Tuple[Tensor, Tensor, Tensor]:
+    return _dense(*monitor_combine_plain(u, v, f, s=s, threshold=threshold,
+                                         margin=margin))
+
+
+def _combine_cuda(u, v, f, s, threshold, margin):
+    return monitor_combine_cuda(u, v, f, s=s, threshold=threshold,
+                                margin=margin)
+
+
+def _flash_cpu(q: Tensor, k: Tensor, v: Tensor,
+               window: int) -> Tuple[Tensor, Tensor]:
+    return _dense(*flash_attention_plain(q, k, v, window=window))
+
+
+def _flash_cuda(q, k, v, window):
+    return flash_attention_cuda(q, k, v, window=window)
+
+
+def _ssd_cpu(xdt: Tensor, la: Tensor, Bm: Tensor, Cm: Tensor,
+             chunk: int) -> Tuple[Tensor, Tensor]:
+    return _dense(*ssd_scan_plain(xdt, la, Bm, Cm, chunk=chunk))
+
+
+def _ssd_cuda(xdt, la, Bm, Cm, chunk):
+    return ssd_scan_cuda(xdt, la, Bm, Cm, chunk=chunk)
+
+
+_op("decode_attention", _decode_cpu, decode_attention_cuda,
+    decode_attention_shape)
+_op("decode_attention_partial", _partial_cpu, decode_attention_partial_cuda,
+    decode_attention_partial_shape)
+_op("monitor_combine", _combine_cpu, _combine_cuda, monitor_combine_shape)
+FLASH = _op("flash_attention_fwd", _flash_cpu, _flash_cuda,
+            flash_attention_shape)
+SSD = _op("ssd_scan_fwd", _ssd_cpu, _ssd_cuda, ssd_scan_shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, window = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.window = window
+
+
+def _flash_backward(ctx, do, dlse):
+    """Backward in tensor ops from the saved output and log-sum-exp
+    (``flash_attention_backward``: the reference differentiates this
+    attention with XLA, outside any kernel).  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward pass
+    and saves a fresh ``lse``."""
+    q, k, v, o, lse = ctx.saved_tensors
+    with record_function("flash_attention_backward"):
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
+                                              window=ctx.window)
+    return dq, dk, dv, None
+
+
+def _ssd_setup(ctx, inputs, output):
+    *ins, chunk = inputs
+    ctx.save_for_backward(*ins)
+    ctx.chunk = chunk
+
+
+def _ssd_backward(ctx, dy, dh):
+    """The reference has no backward kernel and trains through XLA's
+    gradient of ``ssd_chunked``, so the backward recomputes the plain
+    chunked form from the saved inputs and differentiates it with
+    autograd.  Under ``torch.utils.checkpoint`` the forward runs again in
+    the backward pass."""
+    with record_function("ssd_scan_backward"), torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        y, h = ssd_scan_plain(*ins, chunk=ctx.chunk)
+        grads = torch.autograd.grad((y, h), ins, (dy, dh))
+    return (*grads, None)
+
+
+FLASH.register_autograd(_flash_backward, setup_context=_flash_setup)
+SSD.register_autograd(_ssd_backward, setup_context=_ssd_setup)
+
+# what the call sites call: the ops' overloads, one dispatch each
+_decode = torch.ops.repro_torch.decode_attention.default
+_partial = torch.ops.repro_torch.decode_attention_partial.default
+_combine = torch.ops.repro_torch.monitor_combine.default
+_flash = torch.ops.repro_torch.flash_attention_fwd.default
+_ssd = torch.ops.repro_torch.ssd_scan_fwd.default
+
+# every op this module registers, by name (``analysis/graph.py`` allows
+# their namespace; ``analysis/signs.py`` inlines their plain versions)
+OPS = {"decode_attention": _decode, "decode_attention_partial": _partial,
+       "monitor_combine": _combine, "flash_attention_fwd": _flash,
+       "ssd_scan_fwd": _ssd}
+
+
+# ---------------------------------------------------------------------------
+# Call sites
+# ---------------------------------------------------------------------------
+
+
 def decode_attention(q, k_cache, v_cache, pos):
     """q: (B, Hq, D); caches: (B, C, Hkv, D); pos: scalar or (B,) -> (B,
     Hq, D) in q's dtype.  DTensor caches: ``_decode_region``."""
     if is_dtensor(k_cache):
         return _decode_region(q, k_cache, v_cache, pos)
-    if shape_only(q):
-        return decode_attention_shape(q, k_cache, v_cache, pos)
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, pos)
-    return decode_attention_cuda(q, k_cache, v_cache, pos)
+    return _decode(q, k_cache, v_cache, pos_vector(pos, q.shape[0], q.device))
 
 
 def decode_attention_partial(q, k_slice, v_slice, pos, base: int):
     """One time slice's (o f32, lse f32) of a cache split over ranks, its
-    rows global ``base .. base + Cl - 1`` (``kernels/decode_attention.py``):
-    the shape function, the plain version or the kernel's partial entry."""
-    if shape_only(q):
-        return decode_attention_partial_shape(q, k_slice, v_slice, pos, base)
-    if q.device.type == "cpu":
-        return decode_attention_partial_plain(q, k_slice, v_slice, pos, base)
-    return decode_attention_partial_cuda(q, k_slice, v_slice, pos, base)
+    rows global ``base .. base + Cl - 1`` (``kernels/decode_attention.py``)."""
+    return _partial(q, k_slice, v_slice,
+                    pos_vector(pos, q.shape[0], q.device), int(base))
 
 
 def monitor_combine(u, v, f, *, s: float, threshold: float = 0.0,
@@ -156,46 +294,12 @@ def monitor_combine(u, v, f, *, s: float, threshold: float = 0.0,
     if is_dtensor(u):
         return _combine_region(u, v, f, s=s, threshold=threshold,
                                margin=margin)
-    if shape_only(u):
-        return monitor_combine_shape(u, v, f)
-    if u.device.type == "cpu":
-        return monitor_combine_plain(u, v, f, s=s, threshold=threshold,
-                                     margin=margin)
-    return monitor_combine_cuda(u, v, f, s=s, threshold=threshold,
-                                margin=margin)
+    return _combine(u, v, f, float(s), float(threshold), float(margin))
 
 
 def flash_attention_fwd(q, k, v, *, window: int = 0):
-    """Causal (o, lse): the shape function for shape-only tensors, the
-    plain version for CPU tensors, the kernel for CUDA."""
-    if shape_only(q):
-        return flash_attention_shape(q, k, v, window=window)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window=window)
-    return flash_attention_cuda(q, k, v, window=window)
-
-
-class FlashAttention(torch.autograd.Function):
-    """Forward through ``flash_attention_fwd``; backward in tensor ops from
-    the saved output and log-sum-exp (``flash_attention_backward``: the
-    reference differentiates this attention with XLA, outside any kernel).
-    Under ``torch.utils.checkpoint`` the forward runs again in the backward
-    pass and saves a fresh ``lse``."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, window: int):
-        o, lse = flash_attention_fwd(q, k, v, window=window)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.window = window
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        with record_function("flash_attention_backward"):
-            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
-                                                  window=ctx.window)
-        return dq, dk, dv, None
+    """Causal (o, lse), not differentiated (``flash_attention`` is)."""
+    return _flash(q, k, v, int(window))
 
 
 def flash_attention(q, k, v, *, window: int = 0):
@@ -203,7 +307,7 @@ def flash_attention(q, k, v, *, window: int = 0):
     Hq, Dv), causal, differentiable.  DTensor operands: ``_flash_region``."""
     if is_dtensor(q):
         return _flash_region(q, k, v, window)
-    return FlashAttention.apply(q, k, v, window)
+    return _flash(q, k, v, int(window))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +365,7 @@ def _flash_region(q, k, v, window: int):
         if q_split and not kv_split:
             kl, vl = _kv_heads(kl, vl, kv_heads_for(
                 mesh.get_local_rank("model"), M, Hq, Hkv))
-        return FlashAttention.apply(ql, kl, vl, window)
+        return _flash(ql, kl, vl, int(window))[0]
 
     qp, kvp, kv_grad = list(qp), list(kvp), list(kv_grad)
     return local_map(body, out_placements=qp, in_placements=(qp, kvp, kvp),
@@ -389,37 +493,9 @@ def _kv_heads(kl, vl, heads: List[int]):
 
 
 def ssd_scan_fwd(xdt, la, Bm, Cm, *, chunk: int = 128):
-    """(y, h_final): the shape function for shape-only tensors, the plain
-    version for CPU tensors, the kernel for CUDA."""
-    if shape_only(xdt):
-        return ssd_scan_shape(xdt, la, Bm, Cm, chunk=chunk)
-    if xdt.device.type == "cpu":
-        return ssd_scan_plain(xdt, la, Bm, Cm, chunk=chunk)
-    return ssd_scan_cuda(xdt, la, Bm, Cm, chunk=chunk)
-
-
-class SSDScan(torch.autograd.Function):
-    """Forward through ``ssd_scan_fwd``.  The backward is tensor ops: the
-    reference has no backward kernel and trains through XLA's gradient of
-    ``ssd_chunked``, so the backward recomputes the plain chunked form
-    from the saved inputs and differentiates it with autograd.  Under
-    ``torch.utils.checkpoint`` the forward runs again in the backward
-    pass."""
-
-    @staticmethod
-    def forward(ctx, xdt, la, Bm, Cm, chunk: int):
-        y, h = ssd_scan_fwd(xdt, la, Bm, Cm, chunk=chunk)
-        ctx.save_for_backward(xdt, la, Bm, Cm)
-        ctx.chunk = chunk
-        return y, h
-
-    @staticmethod
-    def backward(ctx, dy, dh):
-        with record_function("ssd_scan_backward"), torch.enable_grad():
-            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-            y, h = ssd_scan_plain(*ins, chunk=ctx.chunk)
-            grads = torch.autograd.grad((y, h), ins, (dy, dh))
-        return (*grads, None)
+    """(y, h_final) of the ``ssd_scan_fwd`` op: xdt (B, S, H, P), la (B, S,
+    H), Bm, Cm (B, S, N), f32; differentiable."""
+    return _ssd(xdt, la, Bm, Cm, int(chunk))
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128, h0=None):
@@ -438,7 +514,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128, h0=None):
             Cm.float().contiguous())
     if is_dtensor(xdt):
         return _ssd_region(*args, chunk)
-    return SSDScan.apply(*args, chunk)
+    return _ssd(*args, int(chunk))
 
 
 def _ssd_region(xdt, la, Bm, Cm, chunk: int):
@@ -456,7 +532,7 @@ def _ssd_region(xdt, la, Bm, Cm, chunk: int):
     hp, bc, bc_grad = list(hp), list(bc), list(bc_grad)
     yp = hp
     h_p = list(on_model(base, mesh, Shard(1) if split else Replicate()))
-    return local_map(lambda a, b, c, d: SSDScan.apply(a, b, c, d, chunk),
+    return local_map(lambda a, b, c, d: _ssd(a, b, c, d, int(chunk)),
                      out_placements=(yp, h_p),
                      in_placements=(hp, hp, bc, bc),
                      in_grad_placements=(hp, hp, bc_grad, bc_grad),

@@ -13,8 +13,9 @@ The plain version is the reference's XLA form ``ssd_chunked``
 (``repro/nn/ssm.py:72``) written on xdt and la, with its chunking rule
 (chunks of ``chunk`` rows when they divide S, else one chunk of S rows).
 The TPU kernel drops the final state (``repro/kernels/ops.py:64``); both
-versions here return it.  The gradient is ``kernels.ops.SSDScan``: the
-reference has no backward kernel and trains through XLA's gradient of
+versions here return it.  The gradient is the ``ssd_scan_fwd`` op's
+registered backward (``kernels/ops.py``): the reference has no backward
+kernel and trains through XLA's gradient of
 ``ssd_chunked``.
 
 One call of the kernel is two device kernels: the first writes C B^T
@@ -99,7 +100,7 @@ def ssd_flops(B: int, S: int, H: int, L: int, P: int, N: int) -> float:
     per (batch row, head, chunk) G @ xdt over the same pairs and the
     carried state through C and the state update, n N P multiply-adds
     each."""
-    full, tail = divmod(S, L)
+    full, tail = S // L, S % L
     total = 0.0
     for n, count in ((L, full), (tail, 1 if tail else 0)):
         total += count * (B * n * (n + 1) * N

@@ -30,8 +30,9 @@ server dies or drains.  ``SessionConfig(mesh="data:8")`` serves on a
 mesh-sharded engine (``serving/mesh.py``): the engine is sharded at open
 (on the first cards, or already sharded over virtual devices with
 ``CollaborativeEngine(..., mesh=MeshSpec.parse(...).build(devices))``).
-The recompile guard comes with a later slice of the port and raises
-``NotImplementedError`` naming its ROADMAP item.
+``arm_recompile_guard()`` arms a guard over the engine's serving paths
+(``analysis/recompile.py``): each path records its call signatures, and
+a churn episode after warmup must add none.
 """
 from __future__ import annotations
 
@@ -43,11 +44,6 @@ import numpy as np
 from repro_torch.serving.async_rpc import TRANSPORTS
 
 MODES = ("sync", "scan", "async")
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: see ROADMAP.md queue 1, item {item}")
 
 
 @dataclass(frozen=True)
@@ -513,8 +509,19 @@ class MonitorSession:
 
     def arm_recompile_guard(self, *, track_global: bool = True,
                             warm_only: bool = False):
-        """The reference's guard over its jitted paths.  The port runs
-        eagerly; its counterpart is a graph-capture guard over the serve
-        step captured in CUDA graphs, which comes with the analysis port
-        (ROADMAP queue 1, item 10)."""
-        raise _later("the recompile guard", "10 (analysis)")
+        """Arm an ``analysis.recompile.RecompileGuard`` over every serving
+        path of this session's engine and return it.  Call AFTER warmup
+        (each call signature is legitimately new once); from then on, a
+        new signature across churn makes ``guard.assert_stable()`` raise.
+        The port runs eagerly: a path's signatures (shapes, dtypes and
+        devices of its tensors, its flags) are what the reference's jit
+        caches count and what graph capture (ROADMAP queue 2, held item
+        0) keys its graphs on.
+
+        ``warm_only`` watches only paths the episode already called: use
+        when the workload may leave optional paths (e.g. the triggered
+        catch-up) cold through warmup."""
+        from repro_torch.analysis.recompile import RecompileGuard
+        return RecompileGuard(self._engine.jitted_paths(),
+                              track_global=track_global,
+                              warm_only=warm_only).arm()

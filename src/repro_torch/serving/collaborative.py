@@ -44,6 +44,12 @@ shard i of a data:N engine computes exactly what an unsharded engine of
 B/N rows fed shard i's streams does.  The scan's compaction stays global
 where its capacity binds (``_scan``).
 
+Each device path records its call signatures (``jitted_paths()``:
+the reference's jit wrappers, ``analysis/recompile.py``), which
+``MonitorSession.arm_recompile_guard`` watches.  The catch-up's
+signature is one round's plus the fuse's, so a backlog's length is not a
+new signature.
+
 ``self.metrics`` (a ``MetricsRegistry``) is always on.  The span tracer
 is off (``None``) unless a session installs one
 (``SessionConfig(trace=True)``); each instrumentation site is then one
@@ -57,6 +63,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.recompile import SignaturePath, signature
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import decomposition as deco
 from repro_torch.core.gating import CommsMeter, compact_correction
@@ -75,6 +82,33 @@ TOKEN_BYTES = 8
 
 def _params_device(params) -> torch.device:
     return next(params.parameters()).device
+
+
+def record_history(history: torch.Tensor, tokens_t: torch.Tensor,
+                   idx: torch.Tensor, active: torch.Tensor) -> None:
+    """history[i, idx[i]] = tokens_t[i] where ``active[i]``, in place; the
+    other rows keep their history bit-for-bit."""
+    rows = torch.arange(history.shape[0], device=history.device)
+    act = active.reshape((-1,) + (1,) * (tokens_t.dim() - 1))
+    history[rows, idx] = torch.where(act, tokens_t, history[rows, idx])
+
+
+def _round_signature(backlog: Backlog):
+    """One round of a backlog and its trigger mask: the catch-up's
+    signature leaves out the round count R."""
+    return tuple(("round", tuple(t.shape[1:]), str(t.dtype), str(t.device))
+                 for t in (backlog.tokens, backlog.pos, backlog.active)) + (
+        signature(backlog.triggered),)
+
+
+class _Union:
+    """One path's signatures over every lane of a sharded engine."""
+
+    def __init__(self, paths):
+        self.paths = list(paths)
+
+    def _cache_size(self) -> int:
+        return len(set().union(*(p.seen for p in self.paths)))
 
 
 class CollaborativeEngine:
@@ -111,6 +145,8 @@ class CollaborativeEngine:
         # (a policy rewrites the vector between steps; serving/policy.py)
         self._thr_eff = np.full(batch, self._calibrated_point(), np.float32)
         self.metrics = MetricsRegistry()
+        self._paths = {name: SignaturePath(name) for name in (
+            "u_head", "v_head", "record_at", "catchup", "scan")}
         self._tracer = None
         self._dispatcher = None
         self._worker = None
@@ -134,6 +170,20 @@ class CollaborativeEngine:
         sharded engine, the one part on an unsharded one."""
         return kind(parts) if self.shards is not None else parts[0]
 
+    def jitted_paths(self) -> Dict[str, object]:
+        """Name -> ``SignaturePath`` of every device path in the serving
+        stack (this engine's heads, history record, catch-up and scan, and
+        both towers' decodes, over every lane): the watch list of
+        ``analysis.recompile.RecompileGuard``, the reference's jit
+        wrappers by name."""
+        paths = dict(self._paths)
+        for tower in ("edge", "server"):
+            engines = [getattr(ln, tower) for ln in self._lanes()]
+            for name in engines[0].jitted_paths():
+                paths[f"{tower}.{name}"] = _Union(
+                    [e.jitted_paths()[name] for e in engines])
+        return paths
+
     def _calibrated_point(self) -> np.float32:
         return np.float32(self.m.threshold - self.m.trigger_margin)
 
@@ -149,6 +199,7 @@ class CollaborativeEngine:
     # many rows it gets, which would break per-row identity between the
     # sync path's full batch and the scan path's compacted buffer.
     def _u_head(self, params, hidden_t: torch.Tensor) -> torch.Tensor:
+        self._paths["u_head"].note(params, hidden_t)
         hd = params.u_head
         feats = torch.tanh(linear(hd.w_feat, hidden_t.float()))
         # Eq. 8 truncation: only the first n basis features reach the device
@@ -158,6 +209,7 @@ class CollaborativeEngine:
         return torch.sum(feats * (hd.a * mask), dim=-1) + t
 
     def _v_head(self, params, hidden_t: torch.Tensor) -> torch.Tensor:
+        self._paths["v_head"].note(params, hidden_t)
         hd = params.v_head
         return torch.sum(hidden_t.float() * hd.w[:, 0], dim=-1) + hd.b[0]
 
@@ -167,13 +219,11 @@ class CollaborativeEngine:
         """history[i, pos[i]] = tokens_t[i] (an id, or (K,) ids) where
         active, on ``lane``'s rows; other slots keep their history
         bit-for-bit."""
-        rows = torch.arange(lane.batch, device=lane.device)
         idx = torch.as_tensor(np.clip(pos, 0, self.max_len - 1),
                               device=lane.device)
-        act = torch.as_tensor(active, device=lane.device).reshape(
-            (-1,) + (1,) * len(self.tok_tail))
-        lane._history[rows, idx] = torch.where(act, tokens_t,
-                                               lane._history[rows, idx])
+        act = torch.as_tensor(active, device=lane.device)
+        self._paths["record_at"].note(lane._history, tokens_t, idx, act)
+        record_history(lane._history, tokens_t, idx, act)
 
     def _backlog(self, server_pos: np.ndarray, t, triggered: np.ndarray,
                  history: Optional[np.ndarray] = None) -> Backlog:
@@ -265,6 +315,8 @@ class CollaborativeEngine:
         ``cache`` (written in place).  Returns (v, fhat).  An async
         session's worker runs this on the cache it owns; it reads nothing
         of the engine's live state."""
+        self._paths["catchup"].note(params, cache, [
+            _round_signature(bl) for bl in parts_of(backlog)], u)
         v = self._catchup_v(params, cache, backlog)
         # a lane with nothing triggered replays no round and fuses nothing
         # (fhat = u), as an engine of its rows is not called
@@ -641,6 +693,7 @@ class CollaborativeEngine:
         t0 = tr.clock() if tr is not None else 0.0
         thr = (self._thr_eff if B == self.batch
                else np.full(B, self._calibrated_point(), np.float32))
+        self._paths["scan"].note(tokens_np, thr)
         u, fhat, trig, served = self._scan(tokens_np, thr)
         trig_np = to_host(trig)
         if tr is not None:

@@ -11,6 +11,16 @@ the decode attention kernel, and the cache write of an inactive row keeps
 the old slot contents.  Every row is decoded; the hidden state of an
 inactive row is garbage and callers gate on ``active``.
 
+``step_masked`` (``decode_masked``) is the reference's dense masked
+decode: a plain batched step whose masked-out rows get their old cache
+contents back by a select, so it runs at static shapes and exports as
+one graph (``analysis/graph.py``).
+
+Each path an engine drives records its call signatures
+(``jitted_paths()``, ``analysis/recompile.py``): the counterpart of the
+reference's jit caches, which ``MonitorSession.arm_recompile_guard``
+watches.
+
 ``prefill`` / ``sample`` / ``generate`` are the reference's text
 generation: the prompt is fed by walking ``decode_step`` over it (as the
 reference's scan does, so no prefill attention kernel is needed), and
@@ -23,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.recompile import SignaturePath
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api as model_api
 from repro_torch.nn.attention import CrossKV, KVCache, MLACache
@@ -68,6 +79,26 @@ def step_at(params, cfg: ArchConfig, cache, tokens_t: torch.Tensor,
                                  route_each_row=True)
 
 
+def step_masked(params, cfg: ArchConfig, cache, tokens_t: torch.Tensor,
+                pos, mask: torch.Tensor, *, with_logits: bool = True):
+    """One dense decode at scalar ``pos`` where only ``mask`` rows commit
+    their cache writes, as the reference's ``decode_masked``: every row
+    decodes as in a plain batched step (an MoE backbone routes all B rows
+    together, the masked-out ones with the hidden states the reference
+    gives them), then every cache leaf keeps its new rows where ``mask``
+    and its old ones elsewhere (a select, as the reference's leafwise
+    ``where``)."""
+    saved = [(leaf, CACHE_BATCH_AXIS[type(entry)], leaf.clone())
+             for entry in _entries(cache) for leaf in entry]
+    out = model_api.decode_step(params, cfg, cache, tokens_t, pos,
+                                with_logits=with_logits)
+    for leaf, axis, old in saved:
+        shape = [1] * leaf.dim()
+        shape[axis] = mask.shape[0]
+        leaf.copy_(torch.where(mask.reshape(shape), leaf, old))
+    return out
+
+
 class ServeEngine:
     """Parameters + cache for one batched decode session on ``device``;
     ``seed`` seeds the generator that ``sample`` draws from above
@@ -80,12 +111,25 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.cache = model_api.init_cache(cfg, batch, max_len, self.device)
         self.pos = 0
-        self.gen = torch.Generator(self.device).manual_seed(seed)
+        # a meta-device engine (shapes only: the analysis' exports) draws
+        # nothing, and torch has no generator for the meta device
+        self.gen = (None if self.device.type == "meta" else
+                    torch.Generator(self.device).manual_seed(seed))
+        self._paths = {name: SignaturePath(name) for name in (
+            "step", "step_masked", "prefill", "step_at[with_logits=True]",
+            "step_at[with_logits=False]")}
+
+    def jitted_paths(self):
+        """Name -> ``SignaturePath`` of every path this engine drives (the
+        reference's jit wrappers): the watch list of
+        ``analysis.recompile.RecompileGuard``."""
+        return dict(self._paths)
 
     def decode(self, tokens_t: torch.Tensor
                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """One step at the engine's scalar position; returns (logits,
         hidden) and advances it."""
+        self._paths["step"].note(self.cache, tokens_t, self.pos)
         out = model_api.decode_step(self.params, self.cfg, self.cache,
                                     tokens_t, self.pos)
         self.pos += 1
@@ -97,6 +141,7 @@ class ServeEngine:
         one decode step a position from ``self.pos`` on, advancing it;
         returns the last position's logits (B, V), or (B, K, V)."""
         tokens = torch.as_tensor(tokens, device=self.device)
+        self._paths["prefill"].note(self.cache, tokens)
         logits = None
         for t in range(tokens.shape[1]):
             logits, _ = self.decode(tokens[:, t])
@@ -136,27 +181,20 @@ class ServeEngine:
 
     def decode_masked(self, tokens_t: torch.Tensor, pos: int,
                       mask: torch.Tensor, *, with_logits: bool = True):
-        """One dense decode at scalar ``pos`` where only ``mask`` rows
-        commit their cache writes, as the reference's ``decode_masked``:
-        every row decodes as in a plain batched step (an MoE backbone
-        routes all B rows together, the masked-out ones with the hidden
-        states the reference gives them), then the masked-out rows of
-        every cache leaf get their old contents back.  ``self.pos`` is
-        not advanced."""
-        rows = torch.nonzero(~torch.as_tensor(mask, device=self.device))[:, 0]
-        saved = [(leaf, CACHE_BATCH_AXIS[type(entry)],
-                  leaf.index_select(CACHE_BATCH_AXIS[type(entry)], rows))
-                 for entry in _entries(self.cache) for leaf in entry]
-        out = model_api.decode_step(self.params, self.cfg, self.cache,
-                                    tokens_t, pos, with_logits=with_logits)
-        for leaf, axis, old in saved:
-            leaf.index_copy_(axis, rows, old)
-        return out
+        """``step_masked`` on the engine's cache at scalar ``pos``.
+        ``self.pos`` is not advanced."""
+        mask = torch.as_tensor(mask, device=self.device)
+        self._paths["step_masked"].note(self.cache, tokens_t, pos, mask,
+                                        with_logits)
+        return step_masked(self.params, self.cfg, self.cache, tokens_t, pos,
+                           mask, with_logits=with_logits)
 
     def decode_at(self, tokens_t: torch.Tensor, pos, active: torch.Tensor,
                   *, with_logits: bool = True):
         """Per-element decode step on the engine's cache (see ``step_at``).
         ``pos``: scalar or (B,).  ``self.pos`` is not advanced."""
+        self._paths[f"step_at[with_logits={bool(with_logits)}]"].note(
+            self.cache, tokens_t, pos, active)
         return step_at(self.params, self.cfg, self.cache, tokens_t, pos,
                        active, with_logits=with_logits)
 

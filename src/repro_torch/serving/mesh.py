@@ -47,7 +47,9 @@ It reads 0 over any number of sync or async steps: the catch-up's
 computed on the host from host arrays (``CollaborativeEngine._backlog``).
 
 The collective-free check (``edge_ops`` / ``assert_collective_free``) is
-the reference's HLO check made for eager PyTorch: it records every op of
+the reference's HLO check made for eager PyTorch (the graph rule of
+``analysis/graph.py`` checks the exported monitor path; both take one
+list of collective namespaces from there): it records every op of
 the monitor path (``decode_at``, which the engine's step runs,
 ``decode_masked``, ``u_head``, ``record_at``) under a
 ``TorchDispatchMode`` and asserts no ``c10d`` op, no copy between devices
@@ -71,6 +73,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis.graph import COLLECTIVE_NAMESPACES
 from repro_torch.core import decomposition as deco
 from repro_torch.distributed.sharding import Mesh, data_axes
 from repro_torch.nn.module import resolve_device
@@ -80,9 +83,9 @@ from repro_torch.serving.engine import (CACHE_BATCH_AXIS, ServeEngine,
 
 _AXIS_RE = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
 
-# ops namespaces of torch.distributed's collectives
-C10D_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional",
-                   "_c10d_functional_autograd")
+# ops namespaces of torch.distributed's collectives: the graph rule's
+# list (``analysis/graph.py``), so the op recorder and the rule agree
+C10D_NAMESPACES = COLLECTIVE_NAMESPACES
 
 # what this module moves between shards, by kind (``cross_shard_steps``)
 _CROSS: collections.Counter = collections.Counter()

@@ -309,7 +309,7 @@ def test_ssd_plan_residency_matches_the_card(cuda, pt):
 
 @pytest.mark.cuda
 def test_ssd_scan_gradient_on_card(cuda):
-    """The SSDScan Function (kernel forward, plain-form backward) against
+    """The ssd_scan_fwd op (kernel forward, plain-form backward) against
     autograd through the plain version in f32 and in f64, rel 1e-4 of the
     largest entry."""
     gen = torch.Generator(cuda).manual_seed(2)
@@ -1209,3 +1209,90 @@ def test_partials_combine_to_the_full_kernel(cuda, dtype, m):
     torch.cuda.synchronize()
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _op_inputs(name, dev, dtype=torch.bfloat16):
+    """Each registered op's inputs at a shape its kernel takes."""
+    gen = torch.Generator(dev).manual_seed(0)
+    r = lambda *s: _rand(s, dtype, gen, dev)  # noqa: E731
+    f = lambda *s: _rand(s, torch.float32, gen, dev)  # noqa: E731
+    pos = torch.tensor([3, 40, 63, 0], dtype=torch.int32, device=dev)
+    return {
+        "decode_attention": ((r(4, 32, 128), r(4, 64, 8, 128),
+                              r(4, 64, 8, 128), pos), {}),
+        "decode_attention_partial": ((r(4, 32, 128), r(4, 32, 8, 128),
+                                      r(4, 32, 8, 128), pos, 32), {}),
+        "monitor_combine": ((f(8), f(8), f(8)),
+                            dict(s=0.2, threshold=0.1, margin=0.25)),
+        "flash_attention_fwd": ((r(2, 256, 8, 128), r(2, 256, 2, 128),
+                                 r(2, 256, 2, 128)), dict(window=0)),
+        "ssd_scan_fwd": ((f(2, 256, 4, 64), -f(2, 256, 4).abs() * 0.1,
+                          f(2, 256, 64), f(2, 256, 64)), dict(chunk=128)),
+    }[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ops.OPS))
+def test_op_on_card_is_the_direct_wrapper(cuda, name):
+    """Each registered op on CUDA tensors dispatches to its kernel's
+    wrapper: bitwise the direct call, one launch each."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_partial_cuda)
+    direct = {"decode_attention": decode_attention_cuda,
+              "decode_attention_partial": decode_attention_partial_cuda,
+              "monitor_combine": monitor_combine_cuda,
+              "flash_attention_fwd": flash_attention_cuda,
+              "ssd_scan_fwd": ssd_scan_cuda}[name]
+    call = {"decode_attention": ops.decode_attention,
+            "decode_attention_partial": ops.decode_attention_partial,
+            "monitor_combine": ops.monitor_combine,
+            "flash_attention_fwd": ops.flash_attention_fwd,
+            "ssd_scan_fwd": ops.ssd_scan_fwd}[name]
+    args, kw = _op_inputs(name, cuda)
+    kernels.reset_launch_counts()
+    got = call(*args, **kw)
+    launched = dict(kernels.launch_counts())
+    want = direct(*args, **kw)
+    torch.cuda.synchronize()
+    from torch.utils._pytree import tree_leaves
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
+    assert sum(launched.values()) == 1, launched
+
+
+@pytest.mark.cuda
+def test_exported_catchup_is_bitwise_eager_on_card(cuda):
+    """granite-8b SMOKE's catch-up (B 4, R 2) exported from CUDA tensors:
+    one decode node per layer per round, one combine; its program run on
+    the card equals the eager catch-up bitwise (v, fhat, the written
+    cache) with the same launches."""
+    from repro_torch.analysis import signs
+    from repro_torch.serving.collaborative import CollaborativeEngine
+    from torch.utils._pytree import tree_leaves
+    cfg = registry.get_smoke("granite-8b")
+    model = init_collab_lm(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    eng = CollaborativeEngine(model, cfg, 4, 16, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(1)
+    for leaf in tree_leaves(eng.server.cache):
+        leaf.copy_(torch.randn(leaf.shape, device=cuda, generator=gen))
+    inputs = signs.catchup_inputs(eng, 2, u=torch.randn(
+        4, device=cuda, generator=gen))
+    ep = signs.export_catchup(eng, 2, args=inputs)
+    targets = [str(n.target) for n in ep.graph.nodes]
+    assert targets.count("repro_torch.decode_attention.default") \
+        == 2 * cfg.n_layers
+    assert targets.count("repro_torch.monitor_combine.default") == 1
+    a, b = copy.deepcopy(inputs[0]), copy.deepcopy(inputs[0])
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = ep.module()(a, *inputs[1:])
+        n_got = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        want = signs.CatchupGraph(eng)(b, *inputs[1:])
+        n_want = kernels.launch_counts()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+    assert n_got == n_want and n_got["decode_attention"] == 2 * cfg.n_layers
+    assert signs.certify_catchup(ep, "granite-8b", cfg.monitor.sigma).ok

@@ -38,6 +38,9 @@ import repro_torch.launch.dryrun, repro_torch.launch.layer_costs
 import repro_torch.launch.roofline, repro_torch.launch.report
 import repro_torch.kernels.decode_attention, repro_torch.nn.attention
 import repro_torch.nn.ssm, repro_torch.nn.xlstm, repro_torch.models.api
+import repro_torch.analysis, repro_torch.analysis.signs
+import repro_torch.analysis.graph, repro_torch.analysis.recompile
+import repro_torch.analysis.rules, repro_torch.analysis.__main__
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
 print("BAD" if bad else "OK", bad)

@@ -227,8 +227,9 @@ def test_churn_survivors_exact_and_attach_bit_cold():
 
 
 def test_session_config_refuses_unported_paths():
-    """What the port does not serve yet raises, naming its ROADMAP item:
-    the recompile guard (item 10).  Mesh sharding (item 8) is ported: the
+    """Every session feature is ported.  The recompile guard (item 10)
+    arms over the engine's serving paths (those the warmup ran) and reports
+    no violation on an unchanged session.  Mesh sharding (item 8) is ported: the
     spec parses, and a session never places shards virtually on its own
     (this host has no card).  The wire, shm and fleet transports are
     ported: a spec without an address, or with a simulated latency, is
@@ -254,9 +255,14 @@ def test_session_config_refuses_unported_paths():
     with pytest.raises(ValueError, match="needs 2 devices"):
         MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu",
                             config=SessionConfig(mesh="data:2")).step([1, 2])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu"
-                            ).arm_recompile_guard()
+    guarded = MonitorSession.open(model, tcfg, batch=2, max_len=8,
+                                  device="cpu")
+    guarded.step([1, 2])
+    # warm_only: the catch-up may stay cold through a one-step warmup
+    guard = guarded.arm_recompile_guard(warm_only=True)
+    guarded.step([3, 4])
+    assert guard.armed and guard.violations() == []
+    guard.assert_stable(allow_global=0)
     sess = MonitorSession.open(model, tcfg, batch=2, max_len=8, device="cpu",
                                config=SessionConfig(mode="scan"))
     with pytest.raises(RuntimeError, match="offline"):

@@ -90,7 +90,7 @@ def test_ssd_plain_ragged_matches_oracle_and_chunked(S, chunk):
 
 @pytest.mark.parametrize("S,chunk", [(96, 32), (50, 32)])
 def test_ssd_scan_gradients_match_jax_grad(S, chunk):
-    """Gradients of ``ops.ssd_scan`` (the SSDScan Function, its backward
+    """Gradients of ``ops.ssd_scan`` (the ssd_scan_fwd op, its backward
     the plain chunked form under autograd) with respect to x, dt, A, Bm
     and Cm, through y and h_final, against jax.grad of ssd_chunked;
     rel 1e-4 of each gradient's largest entry."""
