@@ -38,7 +38,6 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 from torch import Tensor
-from torch.profiler import record_function
 
 from repro_torch.distributed.sharding import is_dtensor, row_placements
 from repro_torch.kernels.decode_attention import (
@@ -51,6 +50,7 @@ from repro_torch.kernels.monitor_combine import (monitor_combine_cuda,
                                                  monitor_combine_plain)
 from repro_torch.kernels.ssm_scan import (ssd_flops, ssd_scan_cuda,
                                           ssd_scan_plain)
+from repro_torch.observability.trace import span
 
 # The dry run's counters: each is a dict kernel name -> {"calls", "flops",
 # "bytes"} that the shape functions add to (``launch/dryrun.py`` pushes
@@ -226,7 +226,7 @@ def _flash_backward(ctx, do, dlse):
     ``torch.utils.checkpoint`` the forward runs again in the backward pass
     and saves a fresh ``lse``."""
     q, k, v, o, lse = ctx.saved_tensors
-    with record_function("flash_attention_backward"):
+    with span("flash_attention_backward"):
         dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
                                               window=ctx.window)
     return dq, dk, dv, None
@@ -244,7 +244,7 @@ def _ssd_backward(ctx, dy, dh):
     chunked form from the saved inputs and differentiates it with
     autograd.  Under ``torch.utils.checkpoint`` the forward runs again in
     the backward pass."""
-    with record_function("ssd_scan_backward"), torch.enable_grad():
+    with span("ssd_scan_backward"), torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         y, h = ssd_scan_plain(*ins, chunk=ctx.chunk)
         grads = torch.autograd.grad((y, h), ins, (dy, dh))

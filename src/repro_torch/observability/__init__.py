@@ -12,14 +12,16 @@ read alike and each validates under the other's schema gate.
     correction server's heartbeat snapshot.
   * ``validate_chrome_trace`` / ``load_trace`` — the trace-event schema
     gate.
+  * ``span`` / ``span_backward`` — ``torch.profiler`` ranges at the
+    program's layer boundaries, opened only while a profiler records.
   * ``breakdown`` / ``breakdown_table`` — span durations by stage.
 """
 from repro_torch.observability.metrics import (Counter, Gauge, MetricsRegistry,
                                          flatten)
 from repro_torch.observability.report import breakdown, breakdown_table
-from repro_torch.observability.trace import (Span, Tracer, load_trace,
-                                       validate_chrome_trace)
+from repro_torch.observability.trace import (Span, Tracer, load_trace, span,
+                                       span_backward, validate_chrome_trace)
 
 __all__ = ["Counter", "Gauge", "MetricsRegistry", "flatten",
            "Span", "Tracer", "breakdown", "breakdown_table",
-           "load_trace", "validate_chrome_trace"]
+           "load_trace", "span", "span_backward", "validate_chrome_trace"]

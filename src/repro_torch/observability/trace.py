@@ -1,6 +1,8 @@
 """Span tracer for the serving stack (``observability/trace.py``):
 monotonic-clock spans, a bounded ring buffer, Chrome trace-event /
-Perfetto JSON export.
+Perfetto JSON export; and ``span``/``span_backward``, the gated
+``torch.profiler`` ranges that name the program's layers in a device
+trace.
 
 One ``Tracer`` rides a serving session (``SessionConfig(trace=True)``)
 and collects spans on the reference's tracks and names, so the two
@@ -28,17 +30,33 @@ Cost discipline: sessions default to ``trace=False`` and every
 instrumentation site is guarded by one ``if tracer is not None`` check --
 the disabled path never allocates a span and never reads the clock for
 tracing.  Enabled, a span is one ``time.monotonic()`` pair plus an append
-into a bounded deque; nothing here touches torch, so tracing adds no
-device work and no host sync.
+into a bounded deque; the Tracer touches no torch, so tracing adds no
+device work and no host sync.  Its export lays the spans on the system
+clock as ``torch.profiler``'s Chrome trace does (``ts`` in us after the
+file's ``baseTimeNanoseconds``), so a session's spans and a device trace
+of the same process line up.
+
+Profiler ranges: ``span(name)`` (and ``span_backward``) opens a
+``record_function`` range only while a ``torch.profiler`` records, and is
+one check otherwise.  The ranges and where they open: ``train.forward``
+and ``train.backward`` (``training/loop.py``), ``adamw_update``
+(``training/optimizer.py``), ``flash_attention_backward`` and
+``ssd_scan_backward`` (``kernels/ops.py``), ``stream_dispatch``
+(``serving/async_rpc.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
+import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
+
+import torch
+from torch.profiler import record_function
 
 # stable track -> Chrome tid mapping (one "process" per tracer)
 TRACKS = ("edge", "wire", "server")
@@ -87,6 +105,10 @@ class Tracer:
                          else f"{os.getpid():x}-{next(_trace_seq):x}")
         self._spans: "deque[Span]" = deque(maxlen=self.capacity)
         self._appended = 0
+        # the system clock at the span clock's zero, from one paired
+        # reading: the export's ``baseTimeNanoseconds``
+        mono, wall = time.monotonic_ns(), time.time_ns()
+        self.base_ns = wall - mono
 
     # -- recording -----------------------------------------------------------
     @staticmethod
@@ -107,10 +129,6 @@ class Tracer:
         self._appended += 1
         self._spans.append(Span(name, cat, ts, max(float(dur), 0.0),
                                 track, args))
-
-    def instant(self, name: str, cat: str = "mark", *,
-                track: str = "edge", **args: Any) -> None:
-        self.add(name, cat, time.monotonic(), 0.0, track=track, **args)
 
     # -- inspection ----------------------------------------------------------
     def spans(self) -> List[Span]:
@@ -134,7 +152,9 @@ class Tracer:
         """The Chrome trace-event JSON object (Perfetto loads it as-is):
         ``{"traceEvents": [...], "displayTimeUnit": "ms"}`` with one
         complete ("X") event per span, ts/dur in microseconds, plus
-        thread_name metadata naming the tracks."""
+        thread_name metadata naming the tracks.  As in ``torch.profiler``'s
+        export, ``ts`` + ``baseTimeNanoseconds`` / 1000 is the system clock
+        in us (here ``ts`` is the span clock's reading)."""
         pid = 1
         events: List[Dict[str, Any]] = [
             {"ph": "M", "pid": pid, "tid": tid, "name": "thread_name",
@@ -148,6 +168,7 @@ class Tracer:
                 "args": dict(s.args, trace_id=self.trace_id),
             })
         return {"traceEvents": events, "displayTimeUnit": "ms",
+                "baseTimeNanoseconds": self.base_ns,
                 "otherData": {"trace_id": self.trace_id,
                               "dropped": self.dropped}}
 
@@ -159,6 +180,52 @@ class Tracer:
         with open(path, "w") as fh:
             json.dump(self.to_chrome(), fh)
         return len(self._spans)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``with`` context: the profiler range ``name`` while a
+    ``torch.profiler`` records on this thread, else nothing (one check,
+    no op dispatch)."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
+
+
+class _BackwardRange(torch.autograd.Function):
+    """The identity on the loss.  Its backward, the first node of the
+    backward pass, opens the range on the thread that runs the pass where
+    that is not the caller's (on CUDA, autograd's device thread, which
+    launches the backward's kernels: a range on the caller's thread gets
+    none of their device time), and a callback on the execution engine
+    closes it when the pass ends, on that thread."""
+
+    @staticmethod
+    def forward(ctx, loss, name):
+        ctx.name, ctx.caller = name, threading.get_ident()
+        return loss.view_as(loss)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if threading.get_ident() != ctx.caller:
+            rf = record_function(ctx.name)
+            rf.__enter__()
+            torch.autograd.Variable._execution_engine.queue_callback(
+                lambda: rf.__exit__(None, None, None))
+        return grad, None
+
+
+def span_backward(loss: torch.Tensor, name: str) -> None:
+    """``loss.backward()``; while a ``torch.profiler`` records, inside the
+    range ``name`` on the caller's thread and on the thread that runs the
+    backward pass.  The gradients are the same either way."""
+    if not torch.autograd._profiler_enabled():
+        loss.backward()
+        return
+    with record_function(name):
+        _BackwardRange.apply(loss, name).backward()
 
 
 def validate_chrome_trace(obj: Any) -> int:

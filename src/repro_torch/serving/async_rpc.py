@@ -82,7 +82,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from repro_torch.observability.trace import span
 
 TRANSPORTS = ("inproc", "stream", "thread", "mock_remote", "wire", "shm")
 # dispatches whose timing a StreamWorker keeps (the newest)
@@ -347,7 +348,7 @@ class StreamWorker(ServerWorker):
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(self.device))
         # a profiler range, so a trace shows each dispatch's runtime calls
-        with record_function("stream_dispatch"), \
+        with span("stream_dispatch"), \
                 torch.cuda.stream(self.stream):
             out, start, done = self._enqueue(req, ready)
         self._pending.append([req, out, start, done, None])

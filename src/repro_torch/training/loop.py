@@ -27,6 +27,7 @@ from repro_torch.core.decomposition import (CollabLM, PaperDecomposition,
 from repro_torch.core.losses import collab_lm_loss, paper_loss
 from repro_torch.distributed.sharding import mesh_of, whole
 from repro_torch.nn.module import resolve_device
+from repro_torch.observability.trace import span, span_backward
 from repro_torch.training.optimizer import AdamW, OptState, keeps_masters
 
 
@@ -64,7 +65,15 @@ def make_train_step(cfg: ArchConfig, opt, *, monitor_weight: float = 1.0,
     ``distribute_batch``, the state from ``opt.init(..., placements=)``):
     DTensor's propagation inserts the collectives, and a tensor the model
     code makes itself (rotary angles, masks) counts as replicated.  The
-    metrics are then the whole values, the same on every rank."""
+    metrics are then the whole values, the same on every rank.
+
+    While a ``torch.profiler`` records, the step opens the ranges
+    ``train.forward`` (the forward and the loss) and ``train.backward``
+    (on the caller's thread and on the thread that runs the backward
+    pass: on CUDA, autograd's device thread, which also recomputes the
+    remat layers), and the optimizer ``adamw_update``: together the
+    step's device work.  Traced or not, the step makes the same launches
+    and the same numbers."""
 
     def step(model: CollabLM, opt_state: OptState,
              batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -72,10 +81,12 @@ def make_train_step(cfg: ArchConfig, opt, *, monitor_weight: float = 1.0,
         for p in params:
             p.grad = None
         with placed_region(model):
-            out = collab_forward(model, cfg, batch)
-            parts = collab_lm_loss(out, batch, monitor_weight=monitor_weight,
-                                   safety_weight=safety_weight)
-            parts["total"].backward()
+            with span("train.forward"):
+                out = collab_forward(model, cfg, batch)
+                parts = collab_lm_loss(out, batch,
+                                       monitor_weight=monitor_weight,
+                                       safety_weight=safety_weight)
+            span_backward(parts["total"], "train.backward")
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         parts = {k: whole(v.detach()) for k, v in parts.items()}

@@ -36,9 +36,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Union
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.observability.trace import span
 
 CHUNK_ELEMS = 1 << 28  # 1 GiB of f32 per temporary list
 
@@ -235,7 +235,7 @@ class AdamW:
         """One step in place; returns the gradients' global norm (before
         clipping), an f32 scalar on the parameters' device.  A profiler
         sees it as the range ``adamw_update``."""
-        with record_function("adamw_update"):
+        with span("adamw_update"):
             loc = _Locals(grads, state, params)
             gnorm = loc.norm
             scale = (torch.clamp(self.clip_norm / gnorm, max=1.0)

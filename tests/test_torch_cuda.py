@@ -7,6 +7,7 @@ installed:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import copy
+import json
 import time
 
 import numpy as np
@@ -1296,3 +1297,87 @@ def test_exported_catchup_is_bitwise_eager_on_card(cuda):
                                                  tree_leaves(b)))
     assert n_got == n_want and n_got["decode_attention"] == 2 * cfg.n_layers
     assert signs.certify_catchup(ep, "granite-8b", cfg.monitor.sigma).ok
+
+
+def _step_trace(run, tmp_path):
+    """Profile ``run()`` (which ends in a synchronize) inside the range
+    ``window``: (the launches it counted, window us, busy us, each
+    device range's us, the port's kernels seen).  The first session
+    warms the tracer."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        run()
+    kernels.reset_launch_counts()
+    with profile(activities=acts) as prof:
+        with record_function("window"):
+            run()
+    launched = kernels.launch_counts()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        evs = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    (win,) = [e for e in evs if e["name"] == "window"
+              and e.get("cat") == "user_annotation"]
+    w0, w1 = win["ts"], win["ts"] + win["dur"]
+    dev = sorted((max(w0, e["ts"]), min(w1, e["ts"] + e["dur"]))
+                 for e in evs if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                  "gpu_memset")
+                 and e["ts"] < w1 and e["ts"] + e["dur"] > w0)
+    busy, end = 0.0, w0
+    for a, b in dev:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    ranges = {}
+    for e in evs:
+        if e.get("cat") == "gpu_user_annotation":
+            ranges[e["name"]] = ranges.get(e["name"], 0.0) + e["dur"]
+    seen = {"flash_attention": sum(e.get("cat") == "kernel"
+                                   and "flash_attention" in e["name"]
+                                   for e in evs),
+            "ssd_scan": sum(e.get("cat") == "kernel"
+                            and "ssd_chunk_kernel" in e["name"]
+                            for e in evs)}
+    return launched, w1 - w0, busy, ranges, seen
+
+
+@pytest.mark.cuda
+def test_train_step_ranges_cover_the_step_on_card(cuda, tmp_path):
+    """A small hybrid (zamba2 SMOKE, f32, chunk 16) trained two steps under
+    the profiler: ``train.backward`` has a device projection that holds
+    the SSD and flash backward ranges, ``train.forward``,
+    ``train.backward`` and ``adamw_update`` together lie between 0.9 x
+    the busy time and 1.02 x the window, and the traced steps launch the
+    port's kernels as untraced ones do.  The profiler drops device events
+    of whole calls at times (PERF.md): a trace missing a counted launch is
+    taken again, up to three times."""
+    cfg = registry.get_smoke("zamba2-7b").replace(ssm_chunk=16)
+    cpu = torch.device("cpu")
+    model = init_collab_lm(cfg, torch.Generator().manual_seed(0),
+                           cpu).to(cuda)
+    opt = AdamW(lr=1e-3)
+    state = opt.init(trainable(model))
+    step = make_train_step(cfg, opt)
+    batches = lm_batches(0, cfg, 2, 256)
+
+    def run():
+        for _ in range(2):
+            step(model, state, to_device(next(batches), cuda))
+        torch.cuda.synchronize()
+    run()
+    kernels.reset_launch_counts()
+    run()
+    plain = kernels.launch_counts()
+    for _ in range(3):
+        launched, window, busy, ranges, seen = _step_trace(run, tmp_path)
+        assert launched == plain
+        if seen == {k: launched[k] for k in seen}:
+            break
+    else:
+        pytest.fail(f"no complete trace: seen {seen}, launched {launched}")
+    assert ranges["train.backward"] >= (ranges["flash_attention_backward"]
+                                        + ranges["ssd_scan_backward"]) > 0
+    total = sum(ranges[k] for k in ("train.forward", "train.backward",
+                                    "adamw_update"))
+    assert 0.9 * busy <= total <= 1.02 * window, (total, busy, window,
+                                                  ranges)

@@ -133,6 +133,98 @@ def test_traces_validate_across_packages(tmp_path, writer):
     assert validate_chrome_trace(load_trace(path)) == 5
 
 
+def _profiled(fn, tmp_path):
+    """Run ``fn`` under a CPU ``torch.profiler``; its Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    path = str(tmp_path / "profile.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def _ranges(trace, name):
+    return [e for e in trace["traceEvents"] if e.get("ph") == "X"
+            and e.get("cat") == "user_annotation" and e["name"] == name]
+
+
+def test_tracer_and_profiler_share_a_clock(tmp_path):
+    """A Tracer span and a ``record_function`` range opened at the same
+    point land within 50 us of each other once each file's
+    ``baseTimeNanoseconds`` is applied (the closest of five pairs: a
+    preemption between the two reads delays one of them)."""
+    from torch.profiler import record_function
+    tr = Tracer()
+
+    def both():
+        for _ in range(3):   # a session's first ranges pay for set-up
+            with record_function("warm"):
+                pass
+        for i in range(5):
+            t0 = tr.clock()
+            with record_function(f"mark{i}"):
+                pass
+            tr.done(f"edge.decode{i}", "edge", t0)
+    prof = _profiled(both, tmp_path)
+    path = str(tmp_path / "spans.json")
+    tr.export(path)
+    spans = load_trace(path)
+    gaps = []
+    for i in range(5):
+        (mark,) = _ranges(prof, f"mark{i}")
+        (dec,) = [e for e in spans["traceEvents"]
+                  if e["name"] == f"edge.decode{i}"]
+        gaps.append(mark["ts"] + prof["baseTimeNanoseconds"] / 1e3
+                    - dec["ts"] - spans["baseTimeNanoseconds"] / 1e3)
+    assert min(abs(g) for g in gaps) < 50.0, gaps
+
+
+def test_span_is_one_check_without_a_profiler(monkeypatch):
+    """With no profiler recording, ``span`` and ``span_backward`` never
+    enter ``record_function`` nor add the backward's range node, and the
+    gradient is the plain backward's."""
+    from repro_torch.observability import trace
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with no profiler")
+    monkeypatch.setattr(trace, "record_function", refuse)
+    monkeypatch.setattr(trace._BackwardRange, "apply", refuse)
+    with trace.span("train.forward"):
+        w = torch.arange(3.0, requires_grad=True)
+        loss = (w * w).sum()
+    trace.span_backward(loss, "train.backward")
+    assert torch.equal(w.grad, 2 * torch.arange(3.0))
+
+
+def test_backward_range_on_another_thread_closes_with_the_pass(
+        monkeypatch, tmp_path):
+    """Where the backward pass runs on a thread other than the caller's
+    (autograd's device thread on CUDA), its first node opens the range
+    there and the pass's end closes it: the range holds the pass's nodes
+    and ends before the caller's.  The thread is faked here: the CPU runs
+    the pass on the caller's thread."""
+    from repro_torch.observability import trace
+    idents = iter(range(100))
+    monkeypatch.setattr(trace.threading, "get_ident", lambda: next(idents))
+    w = torch.arange(3.0, requires_grad=True)
+
+    def step():
+        trace.span_backward((w * w).sum(), "train.backward")
+    prof = _profiled(step, tmp_path)
+    outer, inner = sorted(_ranges(prof, "train.backward"),
+                          key=lambda e: (e["ts"], -e["dur"]))
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    nodes = [e for e in prof["traceEvents"] if e.get("ph") == "X"
+             and "MulBackward0" in e["name"]]
+    assert nodes
+    for e in nodes:
+        assert inner["ts"] <= e["ts"]
+        assert e["ts"] + e["dur"] <= inner["ts"] + inner["dur"]
+    assert torch.equal(w.grad, 2 * torch.arange(3.0))
+
+
 # -- metrics registry, histogram, trackers ------------------------------------
 
 def test_registry_get_or_create_and_snapshot():

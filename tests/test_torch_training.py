@@ -7,6 +7,10 @@ Tolerances: kernels f32 2e-5 and bf16 2e-2 (tests/test_kernels.py:23);
 gradients of attention rel 1e-4 of the largest entry (f32 sums in
 another order); whole towers f32 1e-4, bf16 2e-2 (``TOL_E2E``).
 """
+import contextlib
+import json
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +28,7 @@ from repro.training import optimizer as jopt
 from repro.training import schedule as jsched
 from repro_torch import bridge
 from repro_torch.configs import registry as treg
-from repro_torch.core.decomposition import collab_forward
+from repro_torch.core.decomposition import collab_forward, init_collab_lm
 from repro_torch.data import tokens as ttok
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -33,7 +37,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_backward,
 from repro_torch.models import api as tapi
 from repro_torch.training import optimizer as topt
 from repro_torch.training import schedule as tsched
-from repro_torch.training.loop import to_device, trainable, train_collab_lm
+from repro_torch.training.loop import (make_train_step, to_device, trainable,
+                                      train_collab_lm)
 
 from _torch_parity import ARCHS, TOL, TOL_E2E
 from _torch_parity import collab_pair as _collab_pair
@@ -339,6 +344,76 @@ def test_train_collab_lm_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_collab_lm(torch.Generator().manual_seed(0), cfg,
                         ttok.lm_batches(0, cfg, 2, 8), steps=1)
+
+
+
+# ------------------------------------------- the step's profiler ranges
+STEP_RANGES = ("train.forward", "train.backward", "adamw_update")
+
+
+def _smoke_step(arch):
+    """(model, state, step, batches): the port's SMOKE of ``arch`` from
+    seed 0 on the CPU, with ``make_train_step`` and AdamW."""
+    cfg = treg.get_smoke(arch)
+    model = init_collab_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = topt.AdamW(lr=1e-3)
+    state = opt.init(trainable(model))
+    return model, state, make_train_step(cfg, opt), \
+        ttok.lm_batches(0, cfg, 2, 32)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-7b"])
+def test_train_step_ranges_under_the_profiler(arch, tmp_path):
+    """One step under a CPU profiler records ``train.forward``,
+    ``train.backward`` and ``adamw_update`` once each, in that order,
+    without overlap, on the caller's thread; the kernels' backward ranges
+    lie inside ``train.backward``."""
+    from torch.profiler import ProfilerActivity, profile
+    model, state, step, batches = _smoke_step(arch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(model, state, to_device(next(batches), "cpu"))
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        evs = [e for e in json.load(fh)["traceEvents"]
+               if e.get("cat") == "user_annotation"]
+    got = [e for e in evs if e["name"] in STEP_RANGES]
+    assert [e["name"] for e in got] == list(STEP_RANGES)
+    assert {e["tid"] for e in got} == {threading.get_native_id()}
+    for a, b in zip(got, got[1:]):
+        assert a["ts"] + a["dur"] <= b["ts"], (a["name"], b["name"])
+    bwd = got[1]
+    inner = [e for e in evs if e["name"] in ("flash_attention_backward",
+                                             "ssd_scan_backward")]
+    assert inner
+    for e in inner:
+        assert bwd["ts"] <= e["ts"]
+        assert e["ts"] + e["dur"] <= bwd["ts"] + bwd["dur"], e["name"]
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-7b"])
+def test_traced_steps_are_bitwise_untraced(arch):
+    """Two steps under a CPU profiler and two without, from the same
+    weights on the same batches: every loss part and every weight and
+    optimizer moment bitwise equal."""
+    from torch.profiler import ProfilerActivity, profile
+    runs = []
+    for traced in (False, True):
+        model, state, step, batches = _smoke_step(arch)
+        ctx = (profile(activities=[ProfilerActivity.CPU]) if traced
+               else contextlib.nullcontext())
+        with ctx:
+            parts = [step(model, state, to_device(next(batches), "cpu"))
+                     for _ in range(2)]
+        runs.append((parts, list(model.parameters()), state))
+    (pa, wa, sa), (pb, wb, sb) = runs
+    for a, b in zip(pa, pb):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for xs, ys in ((wa, wb), (sa.m, sb.m), (sa.v, sb.v)):
+        for x, y in zip(xs, ys):
+            assert torch.equal(x, y)
 
 
 # ------------------------------------------- optimizer and schedules
